@@ -1,0 +1,204 @@
+"""The generation datasets of the reference, host-side.
+
+Port of the generation subset of noisediff_tpu/data/datasets.py:
+  NoiseImageGenerationDataset   reference dataloader/dataset.py:152-281
+  GenDarkFrameDataset           dataset.py:293-415
+Items are dicts of numpy arrays and python scalars with the reference's key
+names, images HWC float32, so the trainer and the npy export contract line
+up with the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..ops.coords import crop_coord_patch
+from . import manifest
+from .iso_ratio_mapping import COMBINATION_MAPPING
+from .raw_host import load_packed
+
+
+@dataclasses.dataclass
+class DataPaths:
+    """Filesystem layout (the reference's hard-coded cluster paths as
+    explicit settings: dataset.py:22-23)."""
+
+    data_folder: str = "./SID"
+    train_list: str = ""  # default: <data_folder>/Sony_train_list.txt
+    test_list: str = ""
+    val_list: str = ""
+    synthetic_folder: str = "./NoiseDiff_GeneratedNoiseData"
+    resources_path: str = "./resources"
+    pretrained_dir: str = "./pretrained_ckpts"
+    eld_folder: str = "./ELD/testset"
+    eld_val_list: str = ""
+    eld_test_list: str = ""
+    cache_dir: Optional[str] = None
+
+    def __post_init__(self):
+        if not self.train_list:
+            self.train_list = os.path.join(self.data_folder, "Sony_train_list.txt")
+        if not self.test_list:
+            self.test_list = os.path.join(self.data_folder, "Sony_test_list.txt")
+        if not self.val_list:
+            self.val_list = os.path.join(self.data_folder, "Sony_val_list.txt")
+
+    def long_dir(self) -> str:
+        return os.path.join(self.data_folder, "Sony/long")
+
+    def short_dir(self) -> str:
+        return os.path.join(self.data_folder, "Sony/short")
+
+
+class _EpochSeeded:
+    """Per-(seed, epoch, index) RNG, so draws do not depend on the worker
+    layout."""
+
+    def __init__(self, seed: int = 0):
+        self._seed = seed
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def rng(self, idx: int) -> np.random.Generator:
+        return np.random.default_rng(np.random.SeedSequence([self._seed, self._epoch, idx]))
+
+
+def iso_ratio_index(iso: int, ratio: float) -> int:
+    """(iso, ratio) -> camera-embedding row (combination_mapping.pickle)."""
+    idx = COMBINATION_MAPPING.get((int(iso), float(ratio)))
+    if idx is None:
+        raise KeyError(f"(iso={iso}, ratio={ratio}) not in the SID combination mapping")
+    return idx
+
+
+class NoiseImageGenerationDataset(_EpochSeeded):
+    """Clean-patch grid for bulk noise generation at one (iso, ratio)
+    (dataset.py:152-281): excludes the clean frames seen in training for
+    that pair, samples (30 - n_train) other clean frames, and walks the
+    overlapping patch grid."""
+
+    def __init__(self, paths: DataPaths, crop_size: int, iso_value: float, ratio_value: float,
+                 seed: int = 0, max_train_pairs: int = 20, n_total_clean: int = 30,
+                 frame_hw: Optional[Tuple[int, int]] = None):
+        super().__init__(seed)
+        self.paths = paths
+        self.crop_size = crop_size
+        self.iso_value = int(iso_value)
+        self.ratio_value = float(ratio_value)
+
+        train = [
+            e for e in manifest.parse_sid_list(paths.train_list)
+            if e.iso == self.iso_value and e.ratio == self.ratio_value
+        ]
+        if len(train) >= max_train_pairs:
+            raise RuntimeError(
+                f"{len(train)} clean images for (ISO {self.iso_value}, ratio "
+                f"{self.ratio_value}) >= {max_train_pairs} (reference dataset.py:187-189)"
+            )
+
+        # clean frames seen in training (dataset.py:160-161,191-194); a
+        # missing pickle means the full pool
+        seen: List[str] = []
+        info_path = os.path.join(paths.pretrained_dir, "sid_train_clean_info.pickle")
+        if os.path.exists(info_path):
+            with open(info_path, "rb") as f:
+                info = pickle.load(f)
+            for key in (
+                f"{self.iso_value}_{self.ratio_value}",
+                f"{float(self.iso_value)}_{self.ratio_value}",
+                f"{self.iso_value}_{int(self.ratio_value)}",
+            ):
+                if key in info:
+                    seen = list(info[key])
+                    break
+
+        all_clean = sorted(os.listdir(paths.long_dir()))
+        pool = [n for n in all_clean if n not in seen and ".ARW" in n]
+        rng = np.random.default_rng(seed)
+        k = min(max(n_total_clean - len(train), 0), len(pool))
+        chosen = list(rng.choice(pool, size=k, replace=False)) if k else []
+        self.gt_list = [os.path.join(paths.long_dir(), n) for n in chosen]
+
+        # the packed frame size comes from the first clean frame
+        if frame_hw is None and self.gt_list:
+            h, w, _ = load_packed(self.gt_list[0]).shape
+            frame_hw = (h, w)
+        self.frame_hw = frame_hw or (manifest.SID_PACKED_H, manifest.SID_PACKED_W)
+        self.coord_list = manifest.patch_grid(*self.frame_hw, ps=crop_size)
+        self.patch_per_img = len(self.coord_list)
+
+    def __len__(self) -> int:
+        return len(self.gt_list) * self.patch_per_img
+
+    def __getitem__(self, idx: int) -> dict:
+        gt_path = self.gt_list[idx // self.patch_per_img]
+        x, y = self.coord_list[idx % self.patch_per_img]
+        cs = self.crop_size
+        gt_norm = load_packed(gt_path)
+        ih, iw, _ = gt_norm.shape
+        coord = crop_coord_patch(ih, iw, y, x, cs, cs)
+        return {
+            "iso": self.iso_value,
+            "ratio": self.ratio_value,
+            "clean_img": gt_norm[y: y + cs, x: x + cs].astype(np.float32),
+            "coord": coord.astype(np.float32),
+            "clean_name": os.path.basename(gt_path),
+            "iso_ratio_idx": iso_ratio_index(self.iso_value, self.ratio_value),
+            "image_coord": f"{int(x)}_{int(y)}",
+        }
+
+
+class GenDarkFrameDataset(_EpochSeeded):
+    """Coordinate-only grid for dark-frame generation (dataset.py:293-415):
+    one representative pair per unique (iso, ratio); the trainer substitutes
+    a zero clean image (trainer_diffusion.py:288-291)."""
+
+    def __init__(self, paths: DataPaths, crop_size: int, seed: int = 0,
+                 frame_hw: Optional[Tuple[int, int]] = None):
+        super().__init__(seed)
+        self.paths = paths
+        self.crop_size = crop_size
+        seen = set()
+        self.entries: List[manifest.SidEntry] = []
+        for e in manifest.parse_sid_list(paths.train_list):
+            key = f"{e.iso}_{int(e.ratio)}"
+            if key not in seen:
+                seen.add(key)
+                self.entries.append(e)
+        if frame_hw is None and self.entries:
+            gt = os.path.join(paths.data_folder, self.entries[0].gt_path)
+            h, w, _ = load_packed(gt).shape
+            frame_hw = (h, w)
+        self.frame_hw = frame_hw or (manifest.SID_PACKED_H, manifest.SID_PACKED_W)
+        self.coord_list = manifest.patch_grid(*self.frame_hw, ps=crop_size)
+        self.patch_per_img = len(self.coord_list)
+
+    def __len__(self) -> int:
+        return len(self.entries) * self.patch_per_img
+
+    def __getitem__(self, idx: int) -> dict:
+        e = self.entries[idx // self.patch_per_img]
+        x, y = self.coord_list[idx % self.patch_per_img]
+        cs = self.crop_size
+        coord = crop_coord_patch(self.frame_hw[0], self.frame_hw[1], y, x, cs, cs)
+        return {
+            "iso": e.iso,
+            "ratio": e.ratio,
+            "coord": coord.astype(np.float32),
+            "noisy_name": e.in_fn,
+            "clean_name": e.gt_fn,
+            "iso_ratio_idx": iso_ratio_index(e.iso, e.ratio),
+            "image_coord": f"{int(x)}_{int(y)}",
+        }
+
+
+DATASETS = {
+    "NoiseImageGenerationDataset": NoiseImageGenerationDataset,
+    "GenDarkFrameDataset": GenDarkFrameDataset,
+}

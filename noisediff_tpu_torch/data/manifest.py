@@ -1,0 +1,82 @@
+"""SID manifest parsing and the generation patch grid.
+
+Port of the generation subset of noisediff_tpu/data/manifest.py:
+  * Sony_train_list.txt lines 'in gt ISOxxx Fx.x', exposure from filename
+    chars [9:-5], ratio = min(gt_expo / in_expo, 300) (reference
+    dataloader/dataset.py:48-64);
+  * the overlapping patch grid, step = ps - ps//4 over the packed frame
+    (dataset.py:203-219) — its (x, y) order is load-bearing for the
+    'clean+noisy+x_y.npy' names the denoising stage reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Tuple
+
+import numpy as np
+
+# packed (half-res) SID Sony frame size (dataset.py:203)
+SID_PACKED_W = 4256 // 2
+SID_PACKED_H = 2848 // 2
+
+RATIO_CAP = 300.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SidEntry:
+    in_path: str
+    gt_path: str
+    iso: int
+    ratio: float
+
+    @property
+    def in_fn(self) -> str:
+        return os.path.basename(self.in_path)
+
+    @property
+    def gt_fn(self) -> str:
+        return os.path.basename(self.gt_path)
+
+
+def exposure_from_filename(fn: str) -> float:
+    """'00001_00_0.04s.ARW' -> 0.04 (chars [9:-5], reference dataset.py:57-58)."""
+    return float(fn[9:-5])
+
+
+def parse_sid_line(line: str) -> SidEntry:
+    in_path, gt_path, iso_s, _f = line.split(" ")
+    iso = int(iso_s.replace("ISO", ""))
+    in_expo = exposure_from_filename(os.path.basename(in_path))
+    gt_expo = exposure_from_filename(os.path.basename(gt_path))
+    ratio = min(gt_expo / in_expo, RATIO_CAP)
+    return SidEntry(in_path=in_path, gt_path=gt_path, iso=iso, ratio=ratio)
+
+
+def parse_sid_list(path: str) -> List[SidEntry]:
+    entries = []
+    with open(path, "r") as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                entries.append(parse_sid_line(line))
+    return entries
+
+
+def patch_grid(
+    h: int = SID_PACKED_H, w: int = SID_PACKED_W, ps: int = 512
+) -> List[Tuple[int, int]]:
+    """Overlapping (x, y) patch origins, y-major order (dataset.py:203-219).
+
+    A trailing origin at (dim - ps) is appended when the remainder is under
+    one patch, exactly like the reference — including the possible
+    duplicate when (dim - ps) is already on the grid."""
+    step = ps - ps // 4
+    thresh = ps
+    h_space = np.arange(0, h - ps + 1, step)
+    if h - (h_space[-1] + ps) < thresh:
+        h_space = np.append(h_space, h - ps)
+    w_space = np.arange(0, w - ps + 1, step)
+    if w - (w_space[-1] + ps) < thresh:
+        w_space = np.append(w_space, w - ps)
+    return [(int(x), int(y)) for y in h_space for x in w_space]

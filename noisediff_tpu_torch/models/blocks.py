@@ -1,0 +1,309 @@
+"""Building blocks of NoiseDiffNet in PyTorch.
+
+Port of the NoiseDiffNet subset of noisediff_tpu/models/blocks.py
+(reference `models/archs/Diffusion_arch.py`). Module and parameter names
+follow the reference torch state_dict, so a reference `.pth` loads with a
+strict key match (`Sequential` slots reproduce indices such as
+`time_mlp.1`, `mlp.1`, `ff.net.0.0`, `to_out.0`, `downs.i.3.1`).
+
+Activations are NCHW tensors in `torch.channels_last` memory, which is the
+JAX package's NHWC layout physically: the kernels see each map as a
+row-major (pixels, C) matrix through `.permute(0, 2, 3, 1)`, a view.
+Parameters stay fp32 and are cast to the activation dtype where they are
+used, as the JAX modules do.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels import fused_attn_tail, fused_groupnorm_film_silu
+from ..ops.kernels.attn_tail import gelu
+
+CL = torch.channels_last
+Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW (channels-last) -> contiguous NHWC; a view when x is channels-last."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous NHWC -> NCHW channels-last view."""
+    return x.permute(0, 3, 1, 2)
+
+
+def cat_channels(x: Tensors) -> torch.Tensor:
+    """A map, or the channel concat of a tuple of maps (skip joins)."""
+    if isinstance(x, (list, tuple)):
+        return torch.cat(list(x), dim=1).contiguous(memory_format=CL)
+    return x
+
+
+class GELU(nn.Module):
+    """GELU in the activation dtype: tanh form in bf16, erf form otherwise."""
+
+    def forward(self, x):
+        return gelu(x)
+
+
+class Conv2d(nn.Conv2d):
+    """Conv with SAME padding for odd kernels, run in the input's dtype."""
+
+    def __init__(self, cin: int, cout: int, ks: int, stride: int = 1, padding: Optional[int] = None):
+        super().__init__(cin, cout, ks, stride=stride, padding=ks // 2 if padding is None else padding)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
+                        self.padding)
+
+
+class Linear(nn.Linear):
+    """Linear run in the input's dtype."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class SinusoidalPosEmb(nn.Module):
+    """Transformer-style timestep embedding (:94-107), fp32."""
+
+    def __init__(self, dim: int, theta: float = 10000.0):
+        super().__init__()
+        self.dim = dim
+        self.theta = theta
+
+    def forward(self, t):
+        half = self.dim // 2
+        scale = math.log(self.theta) / (half - 1)
+        freqs = torch.exp(torch.arange(half, device=t.device, dtype=torch.float32) * -scale)
+        emb = t.float()[:, None] * freqs[None, :]
+        return torch.cat([emb.sin(), emb.cos()], dim=-1)
+
+
+class TimeMlp(nn.Sequential):
+    """SinusoidalPosEmb -> Linear -> GELU -> Linear (Diffusion_arch.py:502-507).
+    The fourier features are fp32; the MLP runs in `dtype`."""
+
+    def __init__(self, fourier_dim: int, time_dim: int):
+        super().__init__(SinusoidalPosEmb(fourier_dim), Linear(fourier_dim, time_dim), GELU(),
+                         Linear(time_dim, time_dim))
+
+    def forward(self, t, dtype: torch.dtype = torch.float32):
+        h = self[0](t).to(dtype)
+        return self[3](self[2](self[1](h)))
+
+
+class LearnedSinusoidalPosEmb(nn.Module):
+    """Coordinate fourier features: 1x1 conv then [x, sin, cos] (:322-337)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int):
+        super().__init__()
+        self.weights = Conv2d(in_dim, hidden_dim, 1)
+
+    def forward(self, coords):
+        x = self.weights(coords)
+        freqs = x * (2 * math.pi)
+        return torch.cat([x, freqs.sin(), freqs.cos()], dim=1)
+
+
+class Mlp(nn.Module):
+    """1x1-conv MLP: fc1 -> GELU -> fc2 (:340-356)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+        super().__init__()
+        self.fc1 = Conv2d(in_features, hidden_features, 1)
+        self.fc2 = Conv2d(hidden_features, out_features, 1)
+
+    def forward(self, x):
+        return self.fc2(gelu(self.fc1(x)))
+
+
+class GroupNorm(nn.Module):
+    """Block's norm + FiLM + SiLU tail. A FiLM that is absent or per-sample
+    goes through the groupnorm_silu kernel; a per-pixel FiLM (ResnetBlock2's
+    maps) stays in plain torch, as in the JAX package."""
+
+    def __init__(self, channels: int, groups: int, eps: float = 1e-5):
+        super().__init__()
+        self.groups = groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x, scale_shift=None):
+        b, c, h, w = x.shape
+        if scale_shift is not None and scale_shift[0].shape[-2:] != (1, 1):
+            return self._per_pixel_film(x, scale_shift)
+        fs = fsh = None
+        if scale_shift is not None:
+            fs = scale_shift[0].reshape(b, c).float()
+            fsh = scale_shift[1].reshape(b, c).float()
+        y = fused_groupnorm_film_silu(to_nhwc(x).view(b, h * w, c), self.weight, self.bias,
+                                      fs, fsh, self.groups, self.eps)
+        return to_nchw(y.view(b, h, w, c))
+
+    def _per_pixel_film(self, x, scale_shift):
+        """GN affine in fp32 coefficients applied in x's dtype, then the
+        per-pixel FiLM and SiLU in x's dtype (blocks._GNParams)."""
+        from ..ops.kernels.groupnorm_silu import gn_coefficients
+
+        b, c, h, w = x.shape
+        a, bb = gn_coefficients(to_nhwc(x).view(b, h * w, c), self.weight, self.bias, None,
+                                None, self.groups, self.eps)
+        dt = x.dtype
+        y = x * a[:, :, None, None].to(dt) + bb[:, :, None, None].to(dt)
+        s, sh = scale_shift
+        return F.silu(y * (s + 1.0) + sh)
+
+
+class Block(nn.Module):
+    """conv3x3 -> GroupNorm -> (optional FiLM) -> SiLU (:128-144)."""
+
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8):
+        super().__init__()
+        self.proj = Conv2d(dim_in, dim_out, 3)
+        self.norm = GroupNorm(dim_out, groups)
+
+    def forward(self, x, scale_shift=None):
+        return self.norm(self.proj(x), scale_shift)
+
+
+class ResnetBlock(nn.Module):
+    """Two FiLM blocks + residual 1x1 (:146-170), time-FiLM per sample.
+
+    Reference quirk (Diffusion_arch.py:154-155): the constructor's ks is
+    ignored and Block is always 3x3, so `shot_time` runs 3x3 convs too."""
+
+    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: Optional[int] = None,
+                 groups: int = 8):
+        super().__init__()
+        self.mlp = (nn.Sequential(nn.SiLU(), Linear(time_emb_dim, dim_out * 2))
+                    if time_emb_dim is not None else None)
+        self.block1 = Block(dim_in, dim_out, groups)
+        self.block2 = Block(dim_out, dim_out, groups)
+        self.res_conv = Conv2d(dim_in, dim_out, 1) if dim_in != dim_out else nn.Identity()
+
+    def forward(self, x: Tensors, time_emb=None):
+        x = cat_channels(x)
+        scale_shift = None
+        if self.mlp is not None and time_emb is not None:
+            t = self.mlp(time_emb)[:, :, None, None]
+            scale_shift = t.chunk(2, dim=1)
+        h = self.block1(x, scale_shift)
+        h = self.block2(h)
+        return h + self.res_conv(x)
+
+
+class ResnetBlock2(nn.Module):
+    """ResnetBlock with a per-pixel FiLM from the positional embedding map
+    (:173-196): SiLU -> 1x1 conv (pos_dim -> 2 dim_out)."""
+
+    def __init__(self, dim_in: int, dim_out: int, pos_emb_dim: Optional[int] = None,
+                 groups: int = 8):
+        super().__init__()
+        self.mlp = (nn.Sequential(nn.SiLU(), Conv2d(pos_emb_dim, dim_out * 2, 1))
+                    if pos_emb_dim is not None else None)
+        self.block1 = Block(dim_in, dim_out, groups)
+        self.block2 = Block(dim_out, dim_out, groups)
+        self.res_conv = Conv2d(dim_in, dim_out, 1) if dim_in != dim_out else nn.Identity()
+
+    def forward(self, x, pos_emb=None):
+        scale_shift = None
+        if self.mlp is not None and pos_emb is not None:
+            scale_shift = self.mlp(pos_emb).chunk(2, dim=1)
+        h = self.block1(x, scale_shift)
+        h = self.block2(h)
+        return h + self.res_conv(x)
+
+
+class CrossAttention(nn.Module):
+    """Cross attention (:361-402) through the exact one-token path: with a
+    single context token the softmax is identically 1, so the output is
+    to_out(to_v(context)) broadcast over the pixels, independent of the
+    queries (blocks.py:1614-1636). to_q and to_k exist for the checkpoint."""
+
+    def __init__(self, query_dim: int, context_dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        inner = heads * dim_head
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = nn.Sequential(Linear(inner, query_dim), nn.Dropout(0.0))
+
+    def token(self, context: torch.Tensor) -> torch.Tensor:
+        """context (B, 1, Cc) -> the per-sample output token (B, C)."""
+        if context.shape[1] != 1:
+            raise NotImplementedError("multi-token cross attention is not on NoiseDiffNet's path")
+        return self.to_out(self.to_v(context[:, 0]))
+
+
+class FeedForward(nn.Module):
+    """Linear -> GELU -> Linear with mult=2 (:405-422)."""
+
+    def __init__(self, dim: int, mult: int = 2):
+        super().__init__()
+        self.net = nn.Sequential(nn.Sequential(Linear(dim, dim * mult), GELU()), nn.Dropout(0.0),
+                                 Linear(dim * mult, dim))
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class AttnBlock(nn.Module):
+    """LN -> cross-attn (+res) -> LN -> FF (+res) -> 1x1 proj, + outer
+    residual (:425-443). With a one-token context the whole block after the
+    token is the attn_tail kernel's chain."""
+
+    def __init__(self, dim: int, context_dim: int = 16, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = CrossAttention(dim, context_dim, heads, dim_head)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+        self.proj_out = Conv2d(dim, dim, 1)
+
+    def forward(self, x, context):
+        tok = self.attn.token(context.to(x.dtype))
+        ff1, ff2 = self.ff.net[0][0], self.ff.net[2]
+        out = fused_attn_tail(
+            to_nhwc(x), tok, self.norm2.weight, self.norm2.bias, ff1.weight, ff1.bias,
+            ff2.weight, ff2.bias, self.proj_out.weight[:, :, 0, 0], self.proj_out.bias,
+            self.norm2.eps,
+        )
+        return to_nchw(out)
+
+
+class Downsample(nn.Sequential):
+    """space-to-depth ((c, p1, p2) channel order) + 1x1 conv (:78-82).
+
+    Run as the equal 2x2 stride-2 conv: input channel c*4 + p1*2 + p2 of
+    the 1x1 kernel is tap (p1, p2) of channel c, so the (O, 4C, 1, 1)
+    weight viewed as (O, C, 2, 2) is that conv's kernel; the rearranged
+    tensor is never made."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__(nn.Identity(), Conv2d(dim_in * 4, dim_out, 1))
+
+    def forward(self, x):
+        conv = self[1]
+        o = conv.weight.shape[0]
+        w = conv.weight.view(o, -1, 2, 2).to(x.dtype)
+        return F.conv2d(x, w, conv.bias.to(x.dtype), stride=2)
+
+
+class Upsample(nn.Sequential):
+    """nearest x2 + 3x3 conv (:72-76)."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__(nn.Upsample(scale_factor=2, mode="nearest"), Conv2d(dim_in, dim_out, 3))
+
+    def forward(self, x):
+        y = F.interpolate(x, scale_factor=2, mode="nearest").contiguous(memory_format=CL)
+        return self[1](y)

@@ -1,0 +1,156 @@
+"""NoiseDiffNet — the shipped conditional diffusion UNet, in PyTorch.
+
+Port of noisediff_tpu/models/noisediff_net.py (reference
+`models/archs/Diffusion_arch.py:447-646`), the unfolded graph. The TPU
+lowerings of the JAX model (width fold, packed heads, int8) compute the
+same math and are not carried over. The output head is the dual_head
+kernel.
+
+4-stage UNet (dim_mults 1, 2, 4, 8): 7x7 init conv; per down stage two
+time-FiLM ResnetBlocks, an ISO cross-attention AttnBlock and a
+space-to-depth Downsample (a 3x3 conv at the last stage); two mid blocks;
+the mirrored up path with skip concats; positional FiLM blocks at entry and
+exit; a pixelwise shot-noise branch; out = shot_noise + read_noise.
+
+At dim=48 the model has 21,268,088 parameters under the reference's 416
+state_dict keys.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..ops.kernels import fused_dual_head
+from .blocks import (
+    AttnBlock,
+    Conv2d,
+    Downsample,
+    LearnedSinusoidalPosEmb,
+    Mlp,
+    ResnetBlock,
+    ResnetBlock2,
+    TimeMlp,
+    Upsample,
+    to_nhwc,
+)
+
+
+class NoiseDiffNet(nn.Module):
+    def __init__(self, dim: int = 48, channels: int = 4, dim_mults=(1, 2, 4, 8),
+                 resnet_block_groups: int = 8, iso_dim: int = 16, iso_vocab: int = 100,
+                 pos_dim: int = 8, attn_heads: int = 4, attn_dim_head: int = 32,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dim = dim
+        self.channels = channels
+        self.dtype = dtype
+        self.downsample_factor = 2 ** (len(dim_mults) - 1)
+        time_dim = dim * 4
+        dims = [dim] + [dim * m for m in dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        g = resnet_block_groups
+
+        def attn(c):
+            return AttnBlock(c, iso_dim, attn_heads, attn_dim_head)
+
+        self.init_conv = Conv2d(channels, dim, 7)
+        self.iso_embed = nn.Embedding(iso_vocab, iso_dim)
+        self.time_mlp = TimeMlp(dim, time_dim)
+
+        self.downs = nn.ModuleList()
+        for ind, (d_in, d_out) in enumerate(in_out):
+            last = ind == len(in_out) - 1
+            self.downs.append(nn.ModuleList([
+                ResnetBlock(d_in, d_in, time_dim, g),
+                ResnetBlock(d_in, d_in, time_dim, g),
+                attn(d_in),
+                Conv2d(d_in, d_out, 3) if last else Downsample(d_in, d_out),
+            ]))
+        mid = dims[-1]
+        self.mid_block1 = ResnetBlock(mid, mid, time_dim, g)
+        self.mid_block2 = ResnetBlock(mid, mid, time_dim, g)
+        self.ups = nn.ModuleList()
+        for ind, (d_in, d_out) in enumerate(reversed(in_out)):
+            last = ind == len(in_out) - 1
+            self.ups.append(nn.ModuleList([
+                ResnetBlock(d_out + d_in, d_out, time_dim, g),
+                ResnetBlock(d_out + d_in, d_out, time_dim, g),
+                attn(d_out),
+                Conv2d(d_out, d_in, 3) if last else Upsample(d_out, d_in),
+            ]))
+        self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, g)
+        self.final_conv = Conv2d(dim, channels, 1)
+
+        self.pos_enc = LearnedSinusoidalPosEmb(2, pos_dim)
+        self.pos_mlp = Mlp(pos_dim * 3, pos_dim * 2, pos_dim)
+        self.pos_block1 = ResnetBlock2(dim, dim, pos_dim, groups=2)
+        self.pos_block2 = ResnetBlock2(dim, dim, pos_dim, groups=2)
+
+        self.shot_mlp1 = Mlp(channels * 2, dim, dim)
+        self.shot_attn = attn(dim)
+        self.shot_mlp2 = Mlp(dim, dim, dim)
+        self.shot_time = ResnetBlock(dim, dim, time_dim, groups=2)
+        self.shot_mlp3 = Mlp(dim, dim, channels)
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor,
+                condition: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """x: (B, H, W, 4) noisy sample, NHWC as in the JAX package; time:
+        (B,) int timesteps; condition: 'clean_img' (B, H, W, 4), 'position'
+        (B, H, W, 2), 'iso_ratio_idx' (B,). Returns (B, H, W, 4) in the
+        model dtype."""
+        f = self.downsample_factor
+        if x.shape[1] % f or x.shape[2] % f:
+            raise ValueError(f"input spatial dims {tuple(x.shape[1:3])} must be divisible by {f}")
+        dt = self.dtype or x.dtype
+
+        def nchw(t):  # NHWC tensor -> channels-last NCHW view in the model dtype
+            return t.to(dt).contiguous().permute(0, 3, 1, 2)
+
+        xin = nchw(x)
+        clean = nchw(condition["clean_img"])
+        position = nchw(condition["position"])
+        context = self.iso_embed(condition["iso_ratio_idx"].long()).to(dt)[:, None, :]
+
+        pos_emb = self.pos_mlp(self.pos_enc(position))
+        t = self.time_mlp(time, dt)
+
+        # shot-noise branch: pixelwise, conditioned on the clean image
+        shot = self.shot_mlp1(torch.cat([clean, xin], dim=1))
+        shot_res = shot
+        shot = self.shot_attn(shot, context)
+        shot = self.shot_mlp2(shot)
+        shot = self.shot_time(shot, t)
+
+        # UNet trunk (read-noise branch)
+        h = self.init_conv(xin)
+        r = h
+        h = self.pos_block1(h, pos_emb)
+        skips = []
+        for block1, block2, attn, down in self.downs:
+            h = block1(h, t)
+            skips.append(h)
+            h = block2(h, t)
+            skips.append(h)
+            h = attn(h, context)
+            h = down(h)
+        h = self.mid_block1(h, t)
+        h = self.mid_block2(h, t)
+        for block1, block2, attn, up in self.ups:
+            h = block1((h, skips.pop()), t)
+            h = block2((h, skips.pop()), t)
+            h = attn(h, context)
+            h = up(h)
+        h = self.pos_block2(h, pos_emb)
+        h = self.final_res_block((h, r), t)
+
+        fc1, fc2 = self.shot_mlp3.fc1, self.shot_mlp3.fc2
+        out = fused_dual_head(
+            to_nhwc(h), to_nhwc(shot), to_nhwc(shot_res),
+            fc1.weight[:, :, 0, 0], fc1.bias, fc2.weight[:, :, 0, 0], fc2.bias,
+            self.final_conv.weight[:, :, 0, 0], self.final_conv.bias,
+        )
+        # the head sums in fp32; the model's output dtype is its compute
+        # dtype, as in the JAX model (noisediff_net.py:350-354)
+        return out.to(dt)

@@ -1,0 +1,139 @@
+"""Weights into the port: JAX param trees, flat `.npz` snapshots and
+reference `.pth`/`.pt` state dicts, all as a PyTorch `state_dict`.
+
+The port's module names are the reference torch keys, so a `.pth` loads
+as it is (after the DDP `module.` prefix is stripped). A JAX param tree (a
+nested dict of arrays, as `noisediff_tpu` holds and its
+`train/checkpoint.py` writes to `.npz` under `jax.tree_util.keystr` names)
+is mapped by this module's own copy of the path rules of
+noisediff_tpu/train/torch_import.py, with the layout transforms inverted:
+
+    conv kernels    HWIO -> OIHW     (transpose 3, 2, 0, 1)
+    dense kernels   (in, out) -> (out, in)
+    norm scale      -> weight;  embedding -> weight
+
+Orbax snapshot directories are not read yet (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# flax segment -> torch segment (None drops the segment)
+_NAME_RULES = {
+    "lin1": "1",  # TimeMlp: Sequential(sinu, Linear, GELU, Linear)
+    "lin2": "3",
+    "sinu": None,
+}
+_STAGE_RE = re.compile(r"^(downs|ups)_(\d+)_(block1|block2|attn|down|up)$")
+_STAGE_SLOT = {"block1": "0", "block2": "1", "attn": "2", "down": "3", "up": "3"}
+_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight"}
+_KEYSTR_RE = re.compile(r"\['([^']*)'\]")
+
+
+def torch_key(path: Tuple[str, ...]) -> str:
+    """flax param path (module..., leaf) -> reference torch state_dict key."""
+    *mods, leaf = path
+    out = []
+    i = 0
+    while i < len(mods):
+        seg = mods[i]
+        m = _STAGE_RE.match(seg)
+        if m:
+            out.append(f"{m.group(1)}.{m.group(2)}.{_STAGE_SLOT[m.group(3)]}")
+            # Downsample / Upsample are Sequential(rearrange|upsample, Conv):
+            # their flax path goes on conv/conv/..., a plain conv's conv/...
+            rest = mods[i + 1:]
+            if m.group(3) in ("down", "up") and rest[:2] == ["conv", "conv"]:
+                out.append("1")
+                i += 3
+                continue
+            i += 1
+            continue
+        if seg == "mlp":  # FiLM head: Sequential(SiLU, Linear | Conv)
+            out.append("mlp.1")
+        elif seg == "ff":  # FeedForward: Sequential(Sequential(Linear, GELU), Dropout, Linear)
+            out.append("ff.net.0.0" if mods[i + 1] == "proj_in" else "ff.net.2")
+            i += 1
+        elif seg == "to_out":  # Sequential(Linear, Dropout)
+            out.append("to_out.0")
+        elif seg in ("conv", "dense", "norm") and i == len(mods) - 1 and i > 0:
+            pass  # the flax primitive inside a wrapper module collapses
+        elif seg in _NAME_RULES:
+            if _NAME_RULES[seg] is not None:
+                out.append(_NAME_RULES[seg])
+        else:
+            out.append(seg)
+        i += 1
+    return ".".join(out + [_LEAF[leaf]])
+
+
+def _to_torch_layout(value: np.ndarray, leaf: str) -> np.ndarray:
+    if leaf == "kernel" and value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if leaf == "kernel" and value.ndim == 2:
+        return value.T  # (in, out) -> (out, in)
+    return value
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _from_paths(items) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for path, value in items:
+        arr = np.ascontiguousarray(_to_torch_layout(np.asarray(value, np.float32), path[-1]))
+        key = torch_key(tuple(path))
+        if key in sd:
+            raise ValueError(f"two parameters map to {key}")
+        sd[key] = torch.from_numpy(arr)
+    return sd
+
+
+def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX param tree (nested dict of arrays; a top-level 'params'
+    collection is unwrapped) -> torch state_dict (fp32, CPU)."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    return _from_paths(_flatten(params))
+
+
+def strip_module_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Drop DDP 'module.' prefixes (reference trainer_diffusion.py:341-346)."""
+    return {(k[7:] if k.startswith("module.") else k): v for k, v in state_dict.items()}
+
+
+def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint file -> torch state_dict: `.pth`/`.pt` (a torch
+    state_dict, possibly DDP-prefixed) or a flat `.npz` snapshot of a JAX
+    param tree."""
+    if path.endswith((".pth", ".pt")):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        return strip_module_prefix(sd)
+    npz = path if path.endswith(".npz") else path + ".npz"
+    if os.path.isfile(npz):
+        with np.load(npz) as f:
+            items = [(tuple(_KEYSTR_RE.findall(k)), f[k]) for k in f.files]
+        if items and items[0][0][:1] == ("params",):
+            items = [(p[1:], v) for p, v in items]
+        return _from_paths(items)
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path}: orbax snapshot directories are not read by the port yet "
+            "(ROADMAP.md, Queue 1); save the params as .npz or .pth"
+        )
+    raise FileNotFoundError(path)
+
+
+def load_into(model: torch.nn.Module, path: str) -> None:
+    """Load a checkpoint file into a model, strict key match."""
+    model.load_state_dict(load_state_dict_file(path), strict=True)
