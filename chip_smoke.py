@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (noisediff_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # every phase, needs one CUDA card
+    python3 chip_smoke.py            # needs one CUDA card
 
-Phases (any failure exits non-zero):
+Every phase runs, in this order (any failure exits non-zero):
   env      the card's name and power limit, torch / CUDA versions, TF32 flags
   build    nvcc builds every kernel of the generation path from
            noisediff_tpu_torch/csrc/ (one compiler process per source)
@@ -406,7 +406,8 @@ def kernels_line(results, counts):
     """One entry per kernel. ms, plain_ms and bound_ms are summed over the
     calls of one model evaluation at the canonical config (each shape's
     median time times its calls per evaluation); per_shape has each shape's
-    numbers."""
+    numbers. `launches` is the wrapper's count over the main phase's run of
+    N_BATCHES batches, `launches_per_batch` that count over N_BATCHES."""
     out = []
     for name, rows in results.items():
         wrapper, source, replaces = KERNEL_META[name]
@@ -415,7 +416,7 @@ def kernels_line(results, counts):
         by_bytes = sum(r["bound_ms"] * r["per_eval"] for r in rows if r["bound_by"] == "bytes")
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts.get(wrapper, 0) if counts else 0,
+            "launches": counts[wrapper], "launches_per_batch": counts[wrapper] / N_BATCHES,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
@@ -427,10 +428,7 @@ def kernels_line(results, counts):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="env,build,kernels,model,profile,main",
-                    help="comma-separated subset of the phases (default: all)")
     args = ap.parse_args(argv)
-    phases = set(args.phases.split(","))
 
     import torch
 
@@ -462,27 +460,21 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
 
-    results, counts = {}, {}
-    if "kernels" in phases:
-        log("[kernels] kernel vs plain version on the card")
-        results = phase_kernels(args.seed)
-    if "model" in phases:
-        log("[model] full-width forward, card vs CPU")
-        phase_model(args.seed)
-    if "profile" in phases:
-        log("[profile] where one model evaluation spends its time")
-        phase_profile(args.seed)
-    if "main" in phases:
-        log("[main] bulk generation through the CLI")
-        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
-        try:
-            counts = phase_main(args.seed, workdir)["counts"]
-        finally:
-            shutil.rmtree(workdir, ignore_errors=True)
+    log("[kernels] kernel vs plain version on the card")
+    results = phase_kernels(args.seed)
+    log("[model] full-width forward, card vs CPU")
+    phase_model(args.seed)
+    log("[profile] where one model evaluation spends its time")
+    phase_profile(args.seed)
+    log("[main] bulk generation through the CLI")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        counts = phase_main(args.seed, workdir)["counts"]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     log(f"[done] {time.time() - t_start:.1f} s")
 
-    if results:
-        print(json.dumps(kernels_line(results, counts)))
+    print(json.dumps(kernels_line(results, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_SMS: Dict[int, int] = {}
 _LOCK = threading.Lock()
 
 
@@ -129,6 +130,18 @@ def on_device(t, device, dtype):
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def sm_count(device) -> int:
+    """The number of SMs of `device`, read from the driver once per card."""
+    import torch
+
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

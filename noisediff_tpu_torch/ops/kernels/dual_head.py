@@ -25,7 +25,7 @@ _SIGNATURES = {
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 _KERNEL_WIDTHS = (16, 32, 48, 64)
-_BLOCKS = 8 * 132
+_BLOCKS_PER_SM = 8
 
 
 def reference_dual_head(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
@@ -65,7 +65,8 @@ def _launch(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
     code = lib.nd_dual_head(
         _build.ptr(x), _build.ptr(shot_a), _build.ptr(shot_b),
         *(_build.ptr(a) for a in args), _build.ptr(out),
-        p, c, max(1, min(-(-p // 128), _BLOCKS)), _build.stream_ptr(dev),
+        p, c, max(1, min(-(-p // 128), _BLOCKS_PER_SM * _build.sm_count(dev))),
+        _build.stream_ptr(dev),
     )
     _build.check(lib, code, "dual_head")
     fused_dual_head.launches += 1

@@ -26,9 +26,9 @@ _SIGNATURES = {
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 }
 
-# blocks the statistics pass aims for: a few per SM of the card's 132
-_STATS_BLOCKS = 4 * 132
-_APPLY_BLOCKS = 8 * 132
+# blocks per SM that the statistics and the apply pass aim for
+_STATS_BLOCKS_PER_SM = 4
+_APPLY_BLOCKS_PER_SM = 8
 
 
 def gn_coefficients(x, gamma, beta, film_scale, film_shift, groups: int, eps: float):
@@ -86,10 +86,11 @@ def _launch(x, gamma, beta, film_scale, film_shift, groups, eps):
         fs, fsh = f32(film_scale), f32(film_shift)
         if tuple(fs.shape) != (b, c) or tuple(fsh.shape) != (b, c):
             raise ValueError("groupnorm_silu kernel: FiLM must be (B, C) per sample")
-    splits = max(1, min(n, -(-_STATS_BLOCKS // b)))
+    sms = _build.sm_count(dev)
+    splits = max(1, min(n, -(-_STATS_BLOCKS_PER_SM * sms // b)))
     rows_per_split = -(-n // splits)
     n_vec = b * n * c // 8
-    apply_blocks = max(1, min(-(-n_vec // 256), _APPLY_BLOCKS))
+    apply_blocks = max(1, min(-(-n_vec // 256), _APPLY_BLOCKS_PER_SM * sms))
     part = torch.empty((b, splits, 2, c), device=dev, dtype=torch.float32)
     coef = torch.empty((b, 2, c), device=dev, dtype=torch.float32)
     y = torch.empty_like(x)
