@@ -1,13 +1,17 @@
-"""Shared CLI plumbing: seeding, device selection, the device flags.
+"""Shared CLI plumbing: seeding, device selection, the device flags, the
+run directories.
 
-Port of the parts of noisediff_tpu/cli/common.py the generation CLI needs.
+Port of the parts of noisediff_tpu/cli/common.py the generation and
+training CLIs need.
 Entry points run on CUDA unless the caller passes `--device cpu`; asking
 for CUDA on a machine without it is an error, never a silent CPU run.
 """
 from __future__ import annotations
 
 import logging
+import os
 import random
+import time
 
 import numpy as np
 import torch
@@ -34,6 +38,9 @@ def add_device_flags(parser) -> None:
     parser.add_argument("--mixed_precision", action="store_true", default=True,
                         help="bf16 compute with an fp32 sample carry (default)")
     parser.add_argument("--no_mixed_precision", dest="mixed_precision", action="store_false")
+    parser.add_argument("--profile", action="store_true",
+                        help="accepted for JAX-CLI compatibility; step traces are not ported "
+                             "yet (ROADMAP.md)")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -57,3 +64,30 @@ def set_precision_flags() -> None:
 def print_args(args) -> None:
     for arg in vars(args):
         logging.info("%s:%s", arg, getattr(args, arg))
+
+
+_RUN_LOG = "noisediff_tpu_torch.run_log"
+
+
+def setup_run_dirs(args, with_logger: bool = True) -> None:
+    """<save_folder>/<name> with its vis/ and snapshot/ directories
+    (args.vis_save_dir, args.snapshot_save_dir), and a timestamped log file
+    there that receives this run's log records."""
+    args.save_folder = os.path.join(args.save_folder, args.name)
+    args.vis_save_dir = os.path.join(args.save_folder, "vis")
+    args.snapshot_save_dir = os.path.join(args.save_folder, "snapshot")
+    os.makedirs(args.vis_save_dir, exist_ok=True)
+    os.makedirs(args.snapshot_save_dir, exist_ok=True)
+    if with_logger:
+        root = logging.getLogger()
+        for h in [h for h in root.handlers if getattr(h, "name", "") == _RUN_LOG]:
+            root.removeHandler(h)
+            h.close()
+        handler = logging.FileHandler(
+            os.path.join(args.save_folder, time.strftime("%Y%m%d_%H%M%S") + ".log"))
+        handler.name = _RUN_LOG
+        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+        root.addHandler(handler)
+        if root.level > logging.INFO:
+            root.setLevel(logging.INFO)
+    print_args(args)

@@ -55,6 +55,78 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Per-channel partial sums over a slab of rows of a (B, N, C) bf16 map,
+// fp32, 16-byte loads (8 channels per thread), C % 8 == 0. Grid (S, B);
+// block: partial_sums_threads(C) threads, partial_sums_smem(C) bytes of
+// dynamic shared memory. Block (s, b) sums rows [s * rows_per_split,
+// (s + 1) * rows_per_split) of sample b and writes part[b][s] = [sum a,
+// sum a * a] (GRAD = false; b unused) or [sum a, sum a * b] (GRAD = true),
+// part (B, S, 2, C). Shared by the GroupNorm statistics (groupnorm_silu.cu,
+// gn_stats.cu) and the GroupNorm affine's gradient statistics (gn_stats.cu).
+__host__ __device__ inline int partial_sums_rows_in_flight(int C) {
+  const int r = 256 / (C / 8);
+  return r < 1 ? 1 : r;
+}
+
+__host__ __device__ inline int partial_sums_threads(int C) {
+  return partial_sums_rows_in_flight(C) * (C / 8);
+}
+
+__host__ __device__ inline size_t partial_sums_smem(int C) {
+  return (size_t)partial_sums_rows_in_flight(C) * 2 * C * sizeof(float);
+}
+
+template <bool GRAD>
+__global__ void channel_partial_sums(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                                     float* __restrict__ part, int N, int C, int S,
+                                     int rows_per_split) {
+  constexpr int VEC = 8;
+  const int s = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int lanes_per_row = C / VEC;
+  const int rows_in_flight = partial_sums_rows_in_flight(C);
+  const int t = threadIdx.x;
+  const int r = t / lanes_per_row;
+  const int v = t - r * lanes_per_row;
+
+  float s1[VEC], s2[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    s1[i] = 0.0f;
+    s2[i] = 0.0f;
+  }
+  const int row0 = s * rows_per_split;
+  const int row1 = min(N, row0 + rows_per_split);
+  const size_t off = (size_t)bi * N * C + (size_t)v * VEC;
+  for (int row = row0 + r; row < row1; row += rows_in_flight) {
+    float fa[VEC], fb[VEC];
+    unpack8(*reinterpret_cast<const uint4*>(a + off + (size_t)row * C), fa);
+    if (GRAD) {
+      unpack8(*reinterpret_cast<const uint4*>(b + off + (size_t)row * C), fb);
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      s1[i] += fa[i];
+      s2[i] += fa[i] * (GRAD ? fb[i] : fa[i]);
+    }
+  }
+
+  extern __shared__ float red[];  // [rows_in_flight][2][C]
+  float* dst = red + (size_t)r * 2 * C + v * VEC;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    dst[i] = s1[i];
+    dst[C + i] = s2[i];
+  }
+  __syncthreads();
+  float* out = part + ((size_t)bi * S + s) * 2 * C;
+  for (int c = t; c < 2 * C; c += blockDim.x) {
+    float acc = 0.0f;
+    for (int rr = 0; rr < rows_in_flight; ++rr) acc += red[(size_t)rr * 2 * C + c];
+    out[c] = acc;
+  }
+}
+
 #define ND_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Each library is one translation unit, so each carries its own copy.

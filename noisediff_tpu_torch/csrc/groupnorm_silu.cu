@@ -11,9 +11,9 @@
 //
 // Design: one program per sample would put 4 blocks on 132 SMs, so the
 // statistics are split over many blocks instead.
-//   1. gn_partial_sums: grid (S, B). Each block sums x and x^2 in fp32 over a
-//      contiguous slab of rows, 16-byte loads (8 channels per thread), and
-//      writes per-channel partials (B, S, 2, C).
+//   1. channel_partial_sums (common.cuh): grid (S, B). Each block sums x and
+//      x^2 in fp32 over a contiguous slab of rows, 16-byte loads (8 channels
+//      per thread), and writes per-channel partials (B, S, 2, C).
 //   2. gn_coeffs: grid (B), one thread per channel. Reduces the S partials,
 //      pools them per group, and folds GroupNorm, its affine and the FiLM
 //      into per-(sample, channel) coefficients y = x * a + bb, exactly the
@@ -28,56 +28,6 @@
 namespace {
 
 constexpr int VEC = 8;  // bf16 values per 16-byte access
-
-__global__ void gn_partial_sums(const bf16* __restrict__ x, float* __restrict__ part,
-                                int N, int C, int S, int rows_per_split) {
-  const int s = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lanes_per_row = C / VEC;
-  const int rows_in_flight = blockDim.x / lanes_per_row;
-  const int t = threadIdx.x;
-  const int r = t / lanes_per_row;
-  const int v = t - r * lanes_per_row;
-
-  float sum[VEC], sq[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    sum[i] = 0.0f;
-    sq[i] = 0.0f;
-  }
-  const int row0 = s * rows_per_split;
-  const int row1 = min(N, row0 + rows_per_split);
-  if (r < rows_in_flight) {
-    const bf16* base = x + (size_t)b * N * C + (size_t)v * VEC;
-    for (int row = row0 + r; row < row1; row += rows_in_flight) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(base + (size_t)row * C);
-      float f[VEC];
-      unpack8(raw, f);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        sum[i] += f[i];
-        sq[i] += f[i] * f[i];
-      }
-    }
-  }
-
-  extern __shared__ float red[];  // [rows_in_flight][2][C]
-  if (r < rows_in_flight) {
-    float* dst = red + (size_t)r * 2 * C + v * VEC;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      dst[i] = sum[i];
-      dst[C + i] = sq[i];
-    }
-  }
-  __syncthreads();
-  float* out = part + ((size_t)b * S + s) * 2 * C;
-  for (int c = t; c < 2 * C; c += blockDim.x) {
-    float acc = 0.0f;
-    for (int rr = 0; rr < rows_in_flight; ++rr) acc += red[(size_t)rr * 2 * C + c];
-    out[c] = acc;
-  }
-}
 
 __global__ void gn_coeffs(const float* __restrict__ part, const float* __restrict__ gamma,
                           const float* __restrict__ beta, const float* __restrict__ film_s,
@@ -147,13 +97,8 @@ ND_EXPORT int nd_groupnorm_silu(const void* x, const void* gamma, const void* be
                                 int rows_per_split, int apply_blocks, float eps,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int lanes_per_row = C / VEC;
-  int rows_in_flight = 256 / lanes_per_row;
-  if (rows_in_flight < 1) rows_in_flight = 1;
-  const int threads = rows_in_flight * lanes_per_row;
-  const size_t red_bytes = (size_t)rows_in_flight * 2 * C * sizeof(float);
-  gn_partial_sums<<<dim3(S, B), threads, red_bytes, st>>>(
-      static_cast<const bf16*>(x), static_cast<float*>(part), N, C, S, rows_per_split);
+  channel_partial_sums<false><<<dim3(S, B), partial_sums_threads(C), partial_sums_smem(C), st>>>(
+      static_cast<const bf16*>(x), nullptr, static_cast<float*>(part), N, C, S, rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -1,6 +1,7 @@
-"""The generation datasets of the reference, host-side.
+"""The diffusion-stage datasets of the reference, host-side.
 
-Port of the generation subset of noisediff_tpu/data/datasets.py:
+Port of the diffusion-stage subset of noisediff_tpu/data/datasets.py:
+  SonyTrainDataset              reference dataloader/dataset.py:29-145
   NoiseImageGenerationDataset   reference dataloader/dataset.py:152-281
   GenDarkFrameDataset           dataset.py:293-415
 Items are dicts of numpy arrays and python scalars with the reference's key
@@ -12,14 +13,14 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..ops.coords import crop_coord_patch
 from . import manifest
 from .iso_ratio_mapping import COMBINATION_MAPPING
-from .raw_host import load_packed
+from .raw_host import load_packed, make_noise_pair, open_bayer
 
 
 @dataclasses.dataclass
@@ -75,6 +76,61 @@ def iso_ratio_index(iso: int, ratio: float) -> int:
     if idx is None:
         raise KeyError(f"(iso={iso}, ratio={ratio}) not in the SID combination mapping")
     return idx
+
+
+class SonyTrainDataset(_EpochSeeded):
+    """Noise-pair training set with (iso, ratio) bucket rebalancing
+    (dataset.py:29-145): buckets with 0 < n < 100 are replicated int(100/n)
+    times; crops are biased 50% to the bottom rows (dataset.py:92-104).
+    Each item's draws come from its (seed, epoch, index) generator, so the
+    items equal the JAX package's on the same tree and seed."""
+
+    def __init__(self, paths: DataPaths, crop_size: int, seed: int = 0):
+        super().__init__(seed)
+        self.paths = paths
+        self.crop_size = crop_size
+
+        buckets: Dict[str, List[manifest.SidEntry]] = {}
+        for e in manifest.parse_sid_list(paths.train_list):
+            buckets.setdefault(f"{e.iso}_{int(e.ratio)}", []).append(e)
+
+        samples: List[manifest.SidEntry] = []
+        for entries in buckets.values():
+            if 0 < len(entries) < 100:
+                entries = int(100.0 / len(entries)) * entries
+            samples.extend(entries)
+        self.sample_list = samples
+
+    def __len__(self) -> int:
+        return len(self.sample_list)
+
+    def _crop(self, rng, ih, iw):
+        h = w = self.crop_size
+        x = int(rng.integers(0, iw - w + 1))
+        if rng.uniform() < 0.5:
+            y = int(rng.integers(0, ih - h + 1))
+        else:
+            y = ih - h - 1  # bottom-row bias (dataset.py:97-99)
+        return x, y
+
+    def __getitem__(self, idx: int) -> dict:
+        e = self.sample_list[idx]
+        rng = self.rng(idx)
+        bayer_in = open_bayer(os.path.join(self.paths.data_folder, e.in_path))
+        bayer_gt = open_bayer(os.path.join(self.paths.data_folder, e.gt_path))
+        ih, iw = bayer_in.shape[0] // 2, bayer_in.shape[1] // 2
+        x, y = self._crop(rng, ih, iw)
+        cs = self.crop_size
+        noisy, clean, noise = make_noise_pair(bayer_in, bayer_gt, y, x, cs, cs, float(e.ratio))
+        coord = crop_coord_patch(ih, iw, y, x, cs, cs)
+        return {
+            "noise": noise,
+            "iso": e.iso,
+            "noisy_img": noisy,
+            "clean_img": clean,
+            "coord": coord.astype(np.float32),
+            "iso_ratio_idx": iso_ratio_index(e.iso, e.ratio),
+        }
 
 
 class NoiseImageGenerationDataset(_EpochSeeded):
@@ -199,6 +255,7 @@ class GenDarkFrameDataset(_EpochSeeded):
 
 
 DATASETS = {
+    "SonyTrainDataset": SonyTrainDataset,
     "NoiseImageGenerationDataset": NoiseImageGenerationDataset,
     "GenDarkFrameDataset": GenDarkFrameDataset,
 }

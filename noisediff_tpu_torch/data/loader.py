@@ -1,14 +1,28 @@
-"""Ordered batching for generation.
+"""Batching for generation and training.
 
-Counterpart of the generation use of noisediff_tpu/data/loader.py: batches
-in dataset order, never shuffled, the last one possibly short. A
-`torch.utils.data.DataLoader` with a numpy collate; worker processes (when
-asked for) start with `spawn`, so none inherits the parent's CUDA state.
+Counterpart of noisediff_tpu/data/loader.py:
+  * generation: batches in dataset order, never shuffled, the last one
+    possibly short; a `torch.utils.data.DataLoader` with a numpy collate,
+    whose worker processes (when asked for) start with `spawn`, so none
+    inherits the parent's CUDA state;
+  * training (`TrainLoader`, create_dataloader's train policy): every epoch
+    shuffled by default_rng(seed + epoch), drop_last, items loaded in a
+    thread pool (decoding and packing run in numpy, which releases the
+    GIL) a few batches ahead of the consumer. The batch order equals the
+    JAX package's.
 """
 from __future__ import annotations
 
+import collections
+import concurrent.futures as cf
+import itertools
+from typing import Iterator
+
 import numpy as np
 from torch.utils.data import DataLoader
+
+# batches the training loader's threads load ahead of the consumer
+PREFETCH = 4
 
 
 def collate(samples) -> dict:
@@ -42,3 +56,54 @@ def generation_loader(dataset, batch_size: int, num_workers: int = 0) -> DataLoa
         collate_fn=collate,
         multiprocessing_context="spawn" if workers else None,
     )
+
+
+class TrainLoader:
+    """Shuffled, drop_last batches of a dataset with `set_epoch`, loaded by
+    `num_workers` threads at most PREFETCH batches ahead."""
+
+    def __init__(self, dataset, batch_size: int, num_workers: int = 2, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def indices(self) -> list:
+        idx = np.arange(len(self.dataset))
+        np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        return idx.tolist()
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def _load(self, batch_indices) -> dict:
+        return collate([self.dataset[i] for i in batch_indices])
+
+    def __iter__(self) -> Iterator[dict]:
+        idx = self.indices()
+        bs = self.batch_size
+        batches = [idx[i: i + bs] for i in range(0, len(idx) - bs + 1, bs)]
+        if self.num_workers <= 1:
+            for b in batches:
+                yield self._load(b)
+            return
+        with cf.ThreadPoolExecutor(self.num_workers) as pool:
+            todo = iter(batches)
+            pending = collections.deque(
+                pool.submit(self._load, b) for b in itertools.islice(todo, PREFETCH))
+            try:
+                while pending:
+                    batch = pending.popleft().result()
+                    nxt = next(todo, None)
+                    if nxt is not None:
+                        pending.append(pool.submit(self._load, nxt))
+                    yield batch
+            finally:
+                for fut in pending:
+                    fut.cancel()

@@ -1,14 +1,14 @@
-"""Gaussian diffusion, sampling half: DPM-Solver++(2M), DDIM and ancestral
-DDPM.
+"""Gaussian diffusion: the training loss, and DPM-Solver++(2M), DDIM and
+ancestral DDPM sampling.
 
-Port of the sampling half of noisediff_tpu/diffusion/gaussian.py (reference
+Port of noisediff_tpu/diffusion/gaussian.py (reference
 `models/denoising_diffusion_pytorch.py`, GaussianDiffusion :167-542). The
 JAX `lax.scan` bodies become Python loops; the per-step scalars are
 computed on the host exactly as the JAX package computes them, and the
 sample carry is fp32 whatever the model's compute dtype. Randomness comes
 from a caller's `torch.Generator`; the JAX package's random streams cannot
-be reproduced, so `init_noise` lets a caller (and the tests) fix x_T.
-The training loss (p_losses / loss) waits for the training slice.
+be reproduced, so `init_noise` lets a caller (and the tests) fix x_T, and
+`p_losses` / `loss` take the noise and the timesteps from the caller.
 """
 from __future__ import annotations
 
@@ -83,7 +83,8 @@ def _f32(v) -> float:
 
 
 class GaussianDiffusion:
-    """Conditional DDPM sampling with pred_noise / pred_x0 / pred_v.
+    """Conditional DDPM training loss and sampling with pred_noise / pred_x0
+    / pred_v.
 
     `model_fn(x, t, condition)` is the denoiser, NHWC in and out."""
 
@@ -107,6 +108,7 @@ class GaussianDiffusion:
         self.buffers = {
             name: torch.from_numpy(getattr(schedule, name)).to(self.device) for name in _BUFFERS
         }
+        self.loss_weight = torch.from_numpy(schedule.loss_weight(objective)).to(self.device)
 
     @classmethod
     def create(cls, model_fn: ModelFn, *, image_size: int, timesteps: int = 1000,
@@ -123,6 +125,9 @@ class GaussianDiffusion:
         return (self.sampling_timesteps is not None
                 and self.sampling_timesteps < self.num_timesteps)
 
+    def normalize(self, x):
+        return x * 2.0 - 1.0 if self.auto_normalize else x
+
     def unnormalize(self, x):
         return (x + 1.0) * 0.5 if self.auto_normalize else x
 
@@ -138,6 +143,14 @@ class GaussianDiffusion:
     def predict_noise_from_start(self, x_t, t, x0):
         return ((self._extract("sqrt_recip_alphas_cumprod", t, x_t.ndim) * x_t - x0)
                 / self._extract("sqrt_recipm1_alphas_cumprod", t, x_t.ndim))
+
+    def predict_v(self, x_start, t, noise):
+        return (self._extract("sqrt_alphas_cumprod", t, x_start.ndim) * noise
+                - self._extract("sqrt_one_minus_alphas_cumprod", t, x_start.ndim) * x_start)
+
+    def q_sample(self, x_start, t, noise):
+        return (self._extract("sqrt_alphas_cumprod", t, x_start.ndim) * x_start
+                + self._extract("sqrt_one_minus_alphas_cumprod", t, x_start.ndim) * noise)
 
     def predict_start_from_v(self, x_t, t, v):
         return (self._extract("sqrt_alphas_cumprod", t, x_t.ndim) * x_t
@@ -170,6 +183,45 @@ class GaussianDiffusion:
             x_start = clip(self.predict_start_from_v(x, t, model_output))
             pred_noise = self.predict_noise_from_start(x, t, x_start)
         return pred_noise, x_start
+
+    # -- training loss (:473-542) --------------------------------------------
+    def p_losses(self, x_start, t, condition: Condition = None,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The weighted training loss at timesteps t (B,): the per-sample MSE
+        of the model output against the objective's target, times
+        loss_weight[t], averaged over the batch; pred_x0 adds the L1 term on
+        the per-channel spatial means (reference :524-528). `noise` defaults
+        to a standard normal draw from `generator`."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device)
+        x = self.q_sample(x_start, t, noise)
+        model_out = self.model_fn(x, t, condition).float()
+        if self.objective == "pred_noise":
+            target = noise
+        elif self.objective == "pred_x0":
+            target = x_start
+        else:
+            target = self.predict_v(x_start, t, noise)
+        loss = (model_out - target).square().mean(dim=tuple(range(1, model_out.ndim)))
+        loss = (loss * self.loss_weight[t]).mean()
+        if self.objective == "pred_x0":
+            loss = loss + (model_out.mean(dim=(1, 2)) - target.mean(dim=(1, 2))).abs().mean()
+        return loss
+
+    def loss(self, img, condition: Condition = None, t: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Training objective (reference forward :534-542): t uniform in
+        [0, T) from `generator` unless given, the image normalised, then
+        p_losses. img: (B, H, W, C) NHWC."""
+        b, h, w = img.shape[:3]
+        if h != self.image_size or w != self.image_size:
+            raise ValueError(f"height/width of image must be {self.image_size}, got {(h, w)}")
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (b,), generator=generator,
+                              device=img.device)
+        return self.p_losses(self.normalize(img), t, condition, noise=noise, generator=generator)
 
     def _init(self, shape, generator, init_noise) -> torch.Tensor:
         if init_noise is not None:

@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from .noisediff_net import NoiseDiffNet
+from .noisediff_net import NoiseDiffNet, is_unread_parameter
 
 _NOT_YET_PORTED = (
     "UNet_PosEmbV2",
@@ -30,4 +30,4 @@ def define_network(net_name: str, cfg, dtype: Optional[torch.dtype] = None):
     raise ValueError(f"{net_name} is not found. Available: ['NoiseDiffNet']")
 
 
-__all__ = ["NoiseDiffNet", "define_network"]
+__all__ = ["NoiseDiffNet", "define_network", "is_unread_parameter"]

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import fused_attn_tail, fused_groupnorm_film_silu
+from ..ops.kernels import fused_attn_tail, fused_groupnorm_film_silu, gn_grad_stats, gn_stats
 from ..ops.kernels.attn_tail import gelu
 
 CL = torch.channels_last
@@ -125,10 +125,99 @@ class Mlp(nn.Module):
         return self.fc2(gelu(self.fc1(x)))
 
 
+def _group_stats(s_c, sq_c, groups: int, cnt: int, eps: float):
+    """Per-channel fp32 sums (B, C) -> per-channel mean and 1/std of their
+    groups (torch GroupNorm: biased, uncentered variance, eps inside the
+    rsqrt), with the per-group values."""
+    b = s_c.shape[0]
+    mean_g = s_c.view(b, groups, -1).sum(-1) / cnt
+    var_g = sq_c.view(b, groups, -1).sum(-1) / cnt - mean_g * mean_g
+    inv_g = torch.rsqrt(var_g + eps)
+    per = s_c.shape[1] // groups
+    return (mean_g.repeat_interleave(per, dim=1), inv_g.repeat_interleave(per, dim=1),
+            mean_g, inv_g)
+
+
+class _GNCoeffs(torch.autograd.Function):
+    """GroupNorm affine coefficients (a, bb), fp32 (B, C), with
+    normalise + scale + bias == x * a + bb, from the gn_stats sums
+    (blocks._gn_coeffs_primal of the JAX package). The backward is the
+    closed form of the JAX `_gnc_bwd`: dx = ds_c + 2 x dsq_c in x's dtype,
+    every other tensor (B, C)-sized, so autograd never materialises an
+    activation-sized fp32 chain. x: (B, H, W, C)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps):
+        b, h, w, c = x.shape
+        s_c, sq_c = gn_stats(x)
+        ctx.groups, ctx.eps, ctx.cnt = groups, eps, h * w * (c // groups)
+        ctx.save_for_backward(x, scale, s_c, sq_c)
+        mean_c, inv_c, _, _ = _group_stats(s_c, sq_c, groups, ctx.cnt, eps)
+        a = inv_c * scale[None, :]
+        return a, bias[None, :] - mean_c * a
+
+    @staticmethod
+    def backward(ctx, da, dbb):
+        x, scale, s_c, sq_c = ctx.saved_tensors
+        da = torch.zeros_like(s_c) if da is None else da
+        dbb = torch.zeros_like(s_c) if dbb is None else dbb
+        b, groups, cnt = x.shape[0], ctx.groups, ctx.cnt
+        mean_c, inv_c, mean_g, inv_g = _group_stats(s_c, sq_c, groups, cnt, ctx.eps)
+        # parameter grads:  a = inv_c scale,  bb = bias - mean_c inv_c scale
+        dscale = (inv_c * da - mean_c * inv_c * dbb).sum(0)
+        dbias = dbb.sum(0)
+        # chain to the sums: d inv_c, d mean_c -> group sums -> s_c, sq_c
+        dinv_g = (scale[None, :] * (da - mean_c * dbb)).view(b, groups, -1).sum(-1)
+        dmean_g = (-inv_c * scale[None, :] * dbb).view(b, groups, -1).sum(-1)
+        dvar_g = -0.5 * inv_g ** 3 * dinv_g
+        dmean_g = dmean_g - 2.0 * mean_g * dvar_g
+        per = s_c.shape[1] // groups
+        ds_c = (dmean_g / cnt).repeat_interleave(per, dim=1)
+        dsq_c = (dvar_g / cnt).repeat_interleave(per, dim=1)
+        dt = x.dtype
+        dx = x * (2.0 * dsq_c)[:, None, None, :].to(dt) + ds_c[:, None, None, :].to(dt)
+        return dx, dscale, dbias, None, None
+
+
+class _GNApply(torch.autograd.Function):
+    """y = x * a + bb with fp32 (B, C) coefficients cast to x's dtype
+    (blocks._gn_apply of the JAX package). Backward: (dbb, da) =
+    gn_grad_stats(g, x) and dx = g * a. x: (B, H, W, C)."""
+
+    @staticmethod
+    def forward(ctx, x, a, bb):
+        ctx.save_for_backward(x, a)
+        dt = x.dtype
+        return x * a[:, None, None, :].to(dt) + bb[:, None, None, :].to(dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a = ctx.saved_tensors
+        g = g.contiguous()
+        dbb, da = gn_grad_stats(g, x)
+        return g * a[:, None, None, :].to(g.dtype), da, dbb
+
+
+def _film_fold(a, bb, scale_shift):
+    """Fold a per-sample FiLM y (s + 1) + sh into the (B, C) coefficients:
+    (x a + bb)(s + 1) + sh == x [a (s + 1)] + [bb (s + 1) + sh], in fp32
+    (blocks._film_fold)."""
+    s, sh = scale_shift
+    s1 = s.reshape(s.shape[0], -1).float() + 1.0
+    return a * s1, bb * s1 + sh.reshape(sh.shape[0], -1).float()
+
+
 class GroupNorm(nn.Module):
-    """Block's norm + FiLM + SiLU tail. A FiLM that is absent or per-sample
-    goes through the groupnorm_silu kernel; a per-pixel FiLM (ResnetBlock2's
-    maps) stays in plain torch, as in the JAX package."""
+    """Block's norm + FiLM + SiLU tail.
+
+    Training (`self.training`, the counterpart of the JAX model's
+    gn_train_trace): every GroupNorm takes the gn_stats route of the JAX
+    training step, each a pair of autograd Functions: coefficients from the
+    gn_stats sums, a per-sample FiLM folded into them, the affine applied in
+    x's dtype with the gn_grad_stats backward; then a per-pixel FiLM
+    (ResnetBlock2's maps) and SiLU as plain torch ops. Evaluation: a FiLM
+    that is absent or per-sample goes through the groupnorm_silu kernel; a
+    per-pixel FiLM stays in plain torch, as in the JAX package."""
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-5):
         super().__init__()
@@ -139,7 +228,10 @@ class GroupNorm(nn.Module):
 
     def forward(self, x, scale_shift=None):
         b, c, h, w = x.shape
-        if scale_shift is not None and scale_shift[0].shape[-2:] != (1, 1):
+        per_pixel = scale_shift is not None and scale_shift[0].shape[-2:] != (1, 1)
+        if self.training:
+            return self._train_forward(x, scale_shift, per_pixel)
+        if per_pixel:
             return self._per_pixel_film(x, scale_shift)
         fs = fsh = None
         if scale_shift is not None:
@@ -148,6 +240,17 @@ class GroupNorm(nn.Module):
         y = fused_groupnorm_film_silu(to_nhwc(x).view(b, h * w, c), self.weight, self.bias,
                                       fs, fsh, self.groups, self.eps)
         return to_nchw(y.view(b, h, w, c))
+
+    def _train_forward(self, x, scale_shift, per_pixel: bool):
+        xh = to_nhwc(x)
+        a, bb = _GNCoeffs.apply(xh, self.weight, self.bias, self.groups, self.eps)
+        if scale_shift is not None and not per_pixel:
+            a, bb = _film_fold(a, bb, scale_shift)
+        y = to_nchw(_GNApply.apply(xh, a, bb))
+        if per_pixel:
+            s, sh = scale_shift
+            y = y * (s + 1.0) + sh
+        return F.silu(y)
 
     def _per_pixel_film(self, x, scale_shift):
         """GN affine in fp32 coefficients applied in x's dtype, then the

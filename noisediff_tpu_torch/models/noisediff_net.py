@@ -37,6 +37,17 @@ from .blocks import (
 )
 
 
+# AttnBlock parameters the one-token cross attention never reads: the query
+# path (norm1, to_q) and the keys (to_k). They exist for the checkpoint;
+# their gradient is zero in the JAX package and None here.
+_UNREAD = (".norm1.", ".attn.to_q.", ".attn.to_k.")
+
+
+def is_unread_parameter(name: str) -> bool:
+    """Whether NoiseDiffNet's forward never reads parameter `name`."""
+    return any(part in "." + name for part in _UNREAD)
+
+
 class NoiseDiffNet(nn.Module):
     def __init__(self, dim: int = 48, channels: int = 4, dim_mults=(1, 2, 4, 8),
                  resnet_block_groups: int = 8, iso_dim: int = 16, iso_vocab: int = 100,

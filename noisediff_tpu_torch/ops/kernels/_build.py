@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("attn_tail", "groupnorm_silu", "dual_head")
+SOURCES = ("attn_tail", "groupnorm_silu", "dual_head", "gn_stats")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -124,7 +124,9 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def on_device(t, device, dtype):
-    """t as a contiguous tensor of `dtype` on `device` (no copy when it is one)."""
+    """t as a contiguous tensor of `dtype` on `device` (no copy when it is
+    one), cut from autograd: a launch's inputs are raw pointers, so the
+    wrappers that need gradients go through a torch.autograd.Function."""
     return t.detach().to(device=device, dtype=dtype).contiguous()
 
 

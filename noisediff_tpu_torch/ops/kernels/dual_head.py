@@ -10,6 +10,13 @@ shot_mlp3 (fc1 C -> C, fc2 C -> 4) on the shot branch plus final_conv
 `fused_dual_head` runs the plain version for a tensor on the CPU and the
 CUDA kernel for a tensor on the card; anything the kernel does not take
 raises. `fused_dual_head.launches` counts kernel launches.
+
+On the card the wrapper is a torch.autograd.Function: the forward is the
+kernel; the backward is autograd of `reference_dual_head`, recomputed from
+the saved inputs. That is the JAX package's own design
+(ops/pallas/dual_head.py:119-131, a custom_vjp whose backward is the jnp
+reference): the JAX package has no Pallas backward for this kernel, so this
+plain backward on the card is its counterpart, not a fallback.
 """
 from __future__ import annotations
 
@@ -73,11 +80,29 @@ def _launch(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
     return out
 
 
+class _DualHead(torch.autograd.Function):
+    """Forward: the kernel. Backward: autograd of the plain version,
+    recomputed (the JAX custom_vjp's jnp backward)."""
+
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.save_for_backward(*inputs)
+        return _launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = reference_dual_head(*inputs)
+            return torch.autograd.grad(out, inputs, g)
+
+
 def fused_dual_head(x, shot_a, shot_b, w1, b1, w2, b2, wr, br) -> torch.Tensor:
-    """Both heads in one pass; see `reference_dual_head` for the arguments."""
+    """Both heads in one pass; see `reference_dual_head` for the arguments.
+    Differentiable on both devices."""
     if x.device.type == "cpu":
         return reference_dual_head(x, shot_a, shot_b, w1, b1, w2, b2, wr, br)
-    return _launch(x, shot_a, shot_b, w1, b1, w2, b2, wr, br)
+    return _DualHead.apply(x, shot_a, shot_b, w1, b1, w2, b2, wr, br)
 
 
 fused_dual_head.launches = 0

@@ -11,6 +11,13 @@ channel) affine (blocks._film_fold).
 `fused_groupnorm_film_silu` runs the plain version for a tensor on the CPU
 and the CUDA kernel for a tensor on the card; anything the kernel does not
 take raises. `fused_groupnorm_film_silu.launches` counts kernel launches.
+
+On the card the wrapper is a torch.autograd.Function whose backward is
+autograd of `reference_groupnorm_film_silu`, recomputed from the saved
+inputs, as the JAX custom_vjp's backward is the jnp reference
+(ops/pallas/groupnorm_silu.py:167-186). The training path does not call it:
+the model's GroupNorm takes the gn_stats route in training, as the JAX
+model does under gn_train_trace.
 """
 from __future__ import annotations
 
@@ -118,7 +125,30 @@ def fused_groupnorm_film_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.
     if x.device.type == "cpu":
         return reference_groupnorm_film_silu(x, gamma, beta, film_scale, film_shift,
                                              groups, eps)
-    return _launch(x, gamma, beta, film_scale, film_shift, groups, eps)
+    return _GroupNormSilu.apply(x, gamma, beta, film_scale, film_shift, groups, eps)
+
+
+class _GroupNormSilu(torch.autograd.Function):
+    """Forward: the kernel. Backward: autograd of the plain version,
+    recomputed (the JAX custom_vjp's jnp backward)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, film_scale, film_shift, groups, eps):
+        ctx.groups, ctx.eps = groups, eps
+        ctx.film = film_scale is not None
+        saved = (x, gamma, beta) + ((film_scale, film_shift) if ctx.film else ())
+        ctx.save_for_backward(*saved)
+        return _launch(x, gamma, beta, film_scale, film_shift, groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            film = inputs[3:] if ctx.film else [None, None]
+            out = reference_groupnorm_film_silu(*inputs[:3], *film, ctx.groups, ctx.eps)
+            grads = torch.autograd.grad(out, inputs, g)
+        film_grads = grads[3:] if ctx.film else (None, None)
+        return (*grads[:3], *film_grads, None, None)
 
 
 fused_groupnorm_film_silu.launches = 0

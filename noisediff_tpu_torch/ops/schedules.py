@@ -88,8 +88,8 @@ def make_beta_schedule(name: str, timesteps: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """All per-timestep buffers needed by sampling (and later training):
-    float32 numpy arrays of shape (T,)."""
+    """All per-timestep buffers of sampling and training: float32 numpy
+    arrays of shape (T,)."""
 
     num_timesteps: int
     betas: np.ndarray
@@ -108,6 +108,15 @@ class DiffusionSchedule:
     loss_weight_pred_noise: np.ndarray
     loss_weight_pred_x0: np.ndarray
     loss_weight_pred_v: np.ndarray
+
+    def loss_weight(self, objective: str) -> np.ndarray:
+        """Per-timestep training-loss weight of an objective (reference
+        :279-286): 1 for pred_noise, snr for pred_x0, snr / (snr + 1) for
+        pred_v."""
+        try:
+            return getattr(self, f"loss_weight_{objective}")
+        except AttributeError:
+            raise ValueError(f"unknown objective {objective!r}") from None
 
 
 def make_schedule(name: str, timesteps: int) -> DiffusionSchedule:

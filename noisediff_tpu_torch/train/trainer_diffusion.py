@@ -1,18 +1,28 @@
-"""Stage-1 trainer, test phase: bulk noise generation.
+"""Stage-1 trainer: training the noise model, and bulk noise generation.
 
-Port of the generation half of noisediff_tpu/train/trainer_diffusion.py
-(reference `models/trainer_diffusion.py` Trainer, test :240-325): dataset by
-name, network by --net_name, GaussianDiffusion with the sampler chosen by
---sampler, and `.test()` writing one CHW float32 .npy per patch under
+Port of noisediff_tpu/train/trainer_diffusion.py (reference
+`models/trainer_diffusion.py` Trainer :33-364): dataset by name, network by
+--net_name, GaussianDiffusion(crop_size, T, schedule, objective).
+
+`.train()` (reference :176-236): Adam with the per-epoch cosine LR, bf16
+compute over fp32 parameters, the EMA (beta .995, copy phase to call 500,
+every 20th call), logging every --log_freq steps, snapshots at
+--save_epoch_freq and 'final' in the reference's .pth format
+(train/checkpoint.py). Each step draws its timesteps and noise from a
+torch.Generator seeded from (random_seed, global step), and the optimizer
+snapshot carries the step and EMA counters, so --resume auto continues a
+run exactly as the uninterrupted run would have.
+
+`.test()` (reference :240-325) writes one CHW float32 .npy per patch under
 deterministic 'clean+noisy+x_y.npy' names, through a background writer
-thread with tmp + os.replace writes. Training waits for a later slice.
-
-Each batch draws its noise from its own torch.Generator seeded from
-(random_seed, batch index), so --skip_existing can resume a run and a
-regenerated batch equals the one an uninterrupted run wrote.
+thread with tmp + os.replace writes. Each batch draws its noise from its
+own torch.Generator seeded from (random_seed, batch index), so
+--skip_existing can resume a run and a regenerated batch equals the one an
+uninterrupted run wrote.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import queue
@@ -26,29 +36,88 @@ import torch
 from ..cli.common import resolve_device, set_precision_flags
 from ..config import paths_from_args
 from ..data.datasets import DATASETS
-from ..data.loader import generation_loader
+from ..data.loader import TrainLoader, generation_loader
 from ..diffusion.gaussian import GaussianDiffusion, default_dpm_steps
 from ..models import define_network
 from ..ops.schedules import make_schedule
-from ..weights import load_into
+from ..weights import adam_state_from_jax, load_into, load_jax_opt_npz
+from . import checkpoint as ckpt
+from .ema import HostEma
+from .schedules import cosine_epoch_lr
+from .state import TARGET_KEYS, make_diffusion_train_step, make_optimizer, set_learning_rate
 
-# salt of the per-batch generator seeds (the JAX trainer folds 999 into its key)
+# salts of the generator seeds (the JAX trainer folds 999 into its sampling
+# key and 1 into its training key)
 _SAMPLE_STREAM = 999
+_TRAIN_STREAM = 1
+# condition tensors of a training batch; the step also takes its target
+_CONDITION_KEYS = ("clean_img", "coord", "iso_ratio_idx")
+
+
+def _stream_seed(random_seed: int, stream: int, index: int) -> int:
+    seq = np.random.SeedSequence([int(random_seed), stream, int(index)])
+    return int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
 def batch_seed(random_seed: int, batch_index: int) -> int:
     """Seed of batch `batch_index`'s generator: a pure function of the run
     seed and the batch, independent of which batches were skipped."""
-    seq = np.random.SeedSequence([int(random_seed), _SAMPLE_STREAM, int(batch_index)])
-    return int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
+    return _stream_seed(random_seed, _SAMPLE_STREAM, batch_index)
+
+
+def step_seed(random_seed: int, step: int) -> int:
+    """Seed of training step `step`'s generator (timesteps and noise): a
+    pure function of the run seed and the global step."""
+    return _stream_seed(random_seed, _TRAIN_STREAM, step)
+
+
+def _cpu_state(sd):
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def upload_batch(batch, keys, device: torch.device) -> Dict[str, torch.Tensor]:
+    """batch[k] for k in keys as tensors on `device`. On the card the host
+    arrays are pinned first, so the upload is queued behind the running
+    step instead of waiting for it."""
+    out = {}
+    for k in keys:
+        t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+class _DeviceClock:
+    """Timestamps on the device's own timeline: CUDA events on the card,
+    which cost no host synchronisation until they are read, and the host
+    clock on the CPU, where every operation is synchronous."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def seconds(self, start, end) -> float:
+        """end - start; on the card only after both events have completed."""
+        return start.elapsed_time(end) / 1e3 if self.cuda else end - start
 
 
 class Trainer:
     def __init__(self, args):
-        if args.phase != "test":
-            raise NotImplementedError("training is not ported yet (see ROADMAP.md, Queue 1)")
+        if args.phase not in ("train", "test"):
+            raise ValueError(f"--phase must be train or test, got {args.phase!r}")
         if getattr(args, "launcher", "none") != "none":
-            raise NotImplementedError("multi-process generation is not ported yet (ROADMAP.md)")
+            raise NotImplementedError(
+                "multi-process training and generation are not ported yet (ROADMAP.md, "
+                "Queue 1 item 10); use --launcher none")
+        if args.phase == "train" and getattr(args, "remat", False):
+            raise NotImplementedError("--remat is not ported yet (ROADMAP.md, Queue 1)")
         self.args = args
         self.device = resolve_device(getattr(args, "device", "cuda"))
         set_precision_flags()
@@ -58,26 +127,41 @@ class Trainer:
         mixed = getattr(args, "mixed_precision", True)
         self.compute_dtype = torch.bfloat16 if mixed else None
 
-        ds_cls = DATASETS[args.testset]
-        kwargs = {}
-        if args.testset == "NoiseImageGenerationDataset":
-            kwargs = dict(iso_value=args.iso_value, ratio_value=args.ratio_value)
-        self.test_dataset = ds_cls(self.paths, args.crop_size, seed=seed, **kwargs)
-        self.test_dataloader = generation_loader(
-            self.test_dataset, args.batch_size, getattr(args, "num_workers", 0))
+        if args.phase == "train":
+            self.train_dataset = DATASETS[args.trainset](self.paths, args.crop_size, seed=seed)
+            self.train_dataloader = TrainLoader(
+                self.train_dataset, args.batch_size, getattr(args, "num_workers", 2), seed=seed)
+        else:
+            ds_cls = DATASETS[args.testset]
+            kwargs = {}
+            if args.testset == "NoiseImageGenerationDataset":
+                kwargs = dict(iso_value=args.iso_value, ratio_value=args.ratio_value)
+            self.test_dataset = ds_cls(self.paths, args.crop_size, seed=seed, **kwargs)
+            self.test_dataloader = generation_loader(
+                self.test_dataset, args.batch_size, getattr(args, "num_workers", 0))
 
         # initial weights from the run seed, without touching the global RNG
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = define_network(args.net_name, args, dtype=self.compute_dtype)
-        if args.resume and args.resume != ".":
+        self._auto_tag = None
+        if args.phase == "train" and args.resume == "auto":
+            # crash recovery: the newest snapshot of this run's directory
+            self._auto_tag = ckpt.latest_epoch(args.snapshot_save_dir)
+            if self._auto_tag is not None:
+                load_into(model, ckpt.component_path(args.snapshot_save_dir, "net",
+                                                     self._auto_tag))
+                if self._auto_tag.isdigit():
+                    args.start_iter = max(args.start_iter, int(self._auto_tag) + 1)
+                logging.info("auto-resumed from net_%s", self._auto_tag)
+            else:
+                logging.info("auto-resume: no snapshot found, starting fresh")
+        elif args.resume and args.resume != ".":
             # "." is the reference CLI's default (test_diffusion.py:73): no checkpoint
             load_into(model, args.resume)  # .pth/.pt or a JAX .npz snapshot, strict
-        self.model = model.to(self.device, memory_format=torch.channels_last).eval()
-        self.model.requires_grad_(False)
+        self.model = model.to(self.device, memory_format=torch.channels_last)
         logging.info("generator parameters: %f",
                      sum(p.numel() for p in self.model.parameters()) / 1e6)
-
         self.diffusion = GaussianDiffusion(
             self.model,
             make_schedule(args.beta_schedule, args.diffusion_steps),
@@ -87,6 +171,149 @@ class Trainer:
             auto_normalize=getattr(args, "auto_normalize", False),
             device=self.device,
         )
+        if args.phase == "train":
+            self._init_training(args)
+        else:
+            self.model.eval()
+            self.model.requires_grad_(False)
+
+    def _init_training(self, args) -> None:
+        """Optimizer, EMA and train step; restores them on --resume auto and
+        --resume_optim (reference :168-189, :262-284)."""
+        self.model.train()
+        self.optimizer = make_optimizer(self.model.parameters(), lr=args.lr,
+                                        weight_decay=getattr(args, "weight_decay", 0.0))
+        self.ema = HostEma(self.model.named_parameters())
+        self.step = 0
+        self.train_step = make_diffusion_train_step(
+            self.diffusion, self.optimizer, getattr(args, "generation_result", "noise"))
+        if self._auto_tag is not None:
+            snap, tag = args.snapshot_save_dir, self._auto_tag
+            ema_path = ckpt.component_path(snap, "ema", tag)
+            if os.path.exists(ema_path):
+                self.ema.load_state_dict(ckpt.load_component(ema_path))
+            opt_path = ckpt.component_path(snap, "optimizer_G", tag)
+            if os.path.exists(opt_path):
+                self._load_optimizer(opt_path)
+                logging.info("auto-resumed ema/optimizer state from %s (step %d)", opt_path,
+                             self.step)
+        if getattr(args, "resume_optim", ""):
+            self._load_optimizer(args.resume_optim)
+
+    def _load_optimizer(self, path: str) -> None:
+        """An optimizer_G snapshot: the port's .pth payload, or a JAX run's
+        flat .npz (its Adam moments through the weight bridge)."""
+        if path.endswith((".pth", ".pt")):
+            payload = ckpt.load_component(path)
+            self.optimizer.load_state_dict(payload["optimizer"])
+            counters = payload
+        else:
+            mu, nu, count, counters = load_jax_opt_npz(path)
+            self.optimizer.load_state_dict(
+                adam_state_from_jax(mu, nu, count, self.optimizer, self.model))
+        if "step" in counters:
+            self.step = int(counters["step"])
+        if "ema_step" in counters:
+            self.ema.calls = int(counters["ema_step"])
+
+    def save_networks(self, name: str, epoch) -> str:
+        snap = self.args.snapshot_save_dir
+        if name == "net":
+            obj = _cpu_state(self.model.state_dict())
+        elif name == "ema":
+            # like the reference, the EMA snapshot is the averaged model itself
+            obj = _cpu_state(self.ema.state_dict())
+        elif name == "optimizer_G":
+            obj = {"optimizer": self.optimizer.state_dict(), "step": self.step,
+                   "ema_step": self.ema.calls}
+        else:
+            raise ValueError(name)
+        return ckpt.save_component(snap, name, epoch, obj)
+
+    def train(self) -> Dict[str, object]:
+        """Run epochs start_iter .. max_iter - 1 and return what was done:
+        {'steps', 'losses', 'snapshots', 'step_seconds', 'step_end_seconds',
+        'epoch_seconds', 'loader_wait_seconds'}.
+
+        Nothing waits for the device inside an epoch, except the loss reads
+        every --log_freq steps (as in the reference). The times are on the
+        device's timeline (CUDA events on the card): step_seconds from a
+        step's start, before its upload, to its end; step_end_seconds each
+        step's end since its epoch's first start, so a gap the loader leaves
+        shows as a later end. epoch_seconds is each epoch's host wall time
+        until the device has finished it, loader waits included;
+        loader_wait_seconds the host time of each epoch spent waiting for
+        the loader."""
+        args = self.args
+        dev = self.device
+        logging.info("training on %s", args.trainset)
+        logging.info("%d training samples", len(self.train_dataset))
+        logging.info("the init lr: %f", args.lr)
+        if getattr(args, "use_tb_logger", False):
+            logging.warning("--use_tb_logger: TensorBoard output is not ported yet (ROADMAP.md)")
+        if getattr(args, "profile", False):
+            logging.warning("--profile: step traces are not ported yet (ROADMAP.md)")
+        params = list(self.model.parameters())
+        generator = torch.Generator(device=dev)
+        clock = _DeviceClock(dev)
+        # the tensors the step reads
+        keys = _CONDITION_KEYS + (TARGET_KEYS[getattr(args, "generation_result", "noise")],)
+        steps = 0
+        losses: List[float] = []
+        step_seconds: List[float] = []
+        step_end_seconds: List[float] = []
+        epoch_seconds: List[float] = []
+        loader_wait_seconds: List[float] = []
+        snapshots: List[str] = []
+        for epoch in range(args.start_iter, args.max_iter):
+            lr = cosine_epoch_lr(args.lr, args.max_iter, epoch)
+            set_learning_rate(self.optimizer, lr)
+            logging.info("current_lr: %f", lr)
+            self.train_dataloader.set_epoch(epoch)
+            t_epoch = t_log = time.perf_counter()
+            waited = 0.0
+            marks = []  # (start, end) of each step
+            unread: List[torch.Tensor] = []  # device losses not read yet
+            batches = iter(self.train_dataloader)
+            for j in itertools.count():
+                t_wait = time.perf_counter()
+                batch = next(batches, None)
+                waited += time.perf_counter() - t_wait
+                if batch is None:
+                    break
+                start = clock.mark()
+                device_batch = upload_batch(batch, keys, dev)
+                generator.manual_seed(step_seed(self.seed, self.step))
+                metrics = self.train_step(device_batch, generator)
+                self.ema.maybe_apply(params)
+                marks.append((start, clock.mark()))
+                unread.append(metrics["diffusion_loss"])
+                self.step += 1
+                steps += 1
+                if j % args.log_freq == 0:
+                    losses += torch.stack(unread).tolist()  # waits for this step
+                    unread = []
+                    now = time.perf_counter()
+                    logging.info("epoch:%03d step:%04d  diffusion_loss:%.06f loss_sum:%f "
+                                 "%4.6fs/batch", epoch, j, losses[-1], losses[-1],
+                                 (now - t_log) / (args.log_freq if j else 1))
+                    t_log = now
+            if unread:
+                losses += torch.stack(unread).tolist()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            epoch_seconds.append(time.perf_counter() - t_epoch)
+            loader_wait_seconds.append(waited)
+            step_seconds += [clock.seconds(s, e) for s, e in marks]
+            step_end_seconds += [clock.seconds(marks[0][0], e) for _, e in marks]
+            if epoch % args.save_epoch_freq == 0:
+                logging.info("Saving state, epoch: %d iter:0", epoch)
+                snapshots += [self.save_networks(n, epoch) for n in ("net", "ema", "optimizer_G")]
+        snapshots += [self.save_networks(n, "final") for n in ("net", "ema")]
+        logging.info("The training stage is over!!!")
+        return {"steps": steps, "losses": losses, "snapshots": snapshots,
+                "step_seconds": step_seconds, "step_end_seconds": step_end_seconds,
+                "epoch_seconds": epoch_seconds, "loader_wait_seconds": loader_wait_seconds}
 
     def sampler(self, batch_size: int) -> Callable:
         """The sampler --sampler selects (trainer_diffusion.py:389-441):

@@ -13,12 +13,18 @@ noisediff_tpu/train/torch_import.py, with the layout transforms inverted:
     norm scale      -> weight;  embedding -> weight
 
 Orbax snapshot directories are not read yet (ROADMAP.md, Queue 1).
+
+Training state crosses the same way: `adam_state_from_jax` turns an optax
+Adam state (the `mu` and `nu` trees and the step count of
+`train/state.make_optimizer`) into a `torch.optim.Adam` state_dict, so a
+JAX run's `optimizer_G` snapshot (a flat `.npz`, `load_jax_opt_npz`)
+resumes in the port.
 """
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,3 +143,58 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
 def load_into(model: torch.nn.Module, path: str) -> None:
     """Load a checkpoint file into a model, strict key match."""
     model.load_state_dict(load_state_dict_file(path), strict=True)
+
+
+def adam_state_from_jax(mu: Mapping[str, Any], nu: Mapping[str, Any], count: int,
+                        optimizer: torch.optim.Optimizer,
+                        model: torch.nn.Module) -> Dict[str, Any]:
+    """An optax `scale_by_adam` state (first and second moment trees in the
+    JAX param layout, and its step count) -> a state_dict for `optimizer`,
+    a torch.optim.Adam over `model.parameters()` in their order. The
+    moments go through the parameters' key map and layout transforms;
+    torch's Adam keeps the same moments and bias-corrects by the same
+    count."""
+    mu_sd, nu_sd = jax_params_to_state_dict(mu), jax_params_to_state_dict(nu)
+    names = [n for n, _ in model.named_parameters()]
+    if set(names) != set(mu_sd) or set(names) != set(nu_sd):
+        raise ValueError("the Adam moments do not cover the model's parameters")
+    sd = optimizer.state_dict()
+    index = [i for g in sd["param_groups"] for i in g["params"]]
+    if len(index) != len(names):
+        raise ValueError("the optimizer does not hold exactly the model's parameters")
+    sd["state"] = {
+        i: {"step": torch.tensor(float(count)), "exp_avg": mu_sd[n].clone(),
+            "exp_avg_sq": nu_sd[n].clone()}
+        for i, n in zip(index, names)
+    }
+    return sd
+
+
+_MOMENT_RE = re.compile(r"\.(mu|nu)(\[.*)$")
+
+
+def load_jax_opt_npz(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], int, Dict[str, int]]:
+    """A flat `.npz` `optimizer_G` snapshot of the JAX trainer -> (mu, nu,
+    count, counters): the Adam moment trees, the Adam step count and the
+    trainer's {'step', 'ema_step'} where saved."""
+    npz = path if path.endswith(".npz") else path + ".npz"
+    mu: Dict[str, Any] = {}
+    nu: Dict[str, Any] = {}
+    count: Optional[int] = None
+    counters: Dict[str, int] = {}
+    with np.load(npz) as f:
+        for k in f.files:
+            m = _MOMENT_RE.search(k)
+            if m:
+                node = mu if m.group(1) == "mu" else nu
+                *mods, leaf = _KEYSTR_RE.findall(m.group(2))
+                for seg in mods:
+                    node = node.setdefault(seg, {})
+                node[leaf] = f[k]
+            elif k.endswith(".count") and ".inner_state" in k:
+                count = int(f[k])
+            elif k in ("['step']", "['ema_step']"):
+                counters[k[2:-2]] = int(f[k])
+    if not mu or count is None:
+        raise ValueError(f"{npz}: no optax Adam state (mu, nu, count) found")
+    return mu, nu, count, counters
