@@ -8,9 +8,10 @@ Every phase runs, in this order (any failure exits non-zero):
   build    nvcc builds every kernel of the port from noisediff_tpu_torch/csrc/
            (one compiler process per source, all at once)
   kernels  each kernel against its plain PyTorch version on the card, at
-           every shape the generation and training paths give it;
-           CUDA-event timings of both beside the card's bound for the same
-           work
+           every shape the generation, training, DDIM, wgrad and attention
+           paths give it; CUDA-event timings of both beside the card's bound
+           for the same work, and of one PyTorch call that computes the same
+           function where there is one (cuDNN's wgrad, SDPA)
   model    the full-width (dim 48) NoiseDiffNet forward on the card, bf16
            through the kernels, against the same weights on the CPU
   profile  one model evaluation at the canonical shape: CUDA-event time and
@@ -41,6 +42,19 @@ Every phase runs, in this order (any failure exits non-zero):
            uploaded before each step) and the device busy time by kernel
            class (torch.profiler); the idle share of each and of the CLI
            run's step
+  ddim     DDIM-100 generation through the CLI at the canonical config
+           (--sampler ddim --sampling_timesteps 100), 2 batches, through the
+           fused DDIM tail (the ddim_head kernel): the npy contract, 100
+           ddim_head and no dual_head launches per batch, patches/s after
+           the first batch; then a DDIM-4 fused sample of the full-width
+           model against the unfused sampler from the same noise
+  train_wgrad  the conv_wgrad route (NOISEDIFF_WGRAD=pallas): the dim-48
+           training step's gradients against the CPU's and against the
+           card's cuDNN-wgrad step; training through the CLI over the same
+           miniature tree: steps/s beside the default run's and the
+           conv_wgrad launches per step
+  attention  blocks.Attention forward and backward at B 4, C 384, 64^2
+           tokens (the flash_attention kernel) against the CPU in fp32
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -78,6 +92,7 @@ GN_PER_EVAL = [  # (stage, groups, film, count)
 # above plus the two per-pixel-FiLM ones of pos_block1/2 at full resolution
 GN_PER_STEP = {0: 16, 1: 8, 2: 8, 3: 12}
 DPM_STEPS = 10
+DDIM_STEPS = 100
 N_BATCHES = 2
 # the miniature training tree: 2 pairs at SID Sony's frame size, one ISO800
 # x250 bucket rebalanced to int(100 / 2) * 2 = 100 samples
@@ -100,6 +115,20 @@ SUM_RTOL = 1e-4
 # to bf16 (autograd through the weights' cast) where the kernel keeps fp32,
 # and every sum over pixels runs in another order
 GRAD_REL = 2e-2
+# the DDIM tail: the head within dual_head's bound; the fp32 update's
+# coefficients (sqrt(a), c / sqrt(1 / a - 1), ...) scale it by at most ~2
+TOLS["ddim_head"] = (2e-2, 2e-2)
+# flash attention, bf16 out: the kernel rounds the unnormalised
+# probabilities to bf16 for p v, the plain version the normalised ones
+TOLS["flash_attention"] = (2e-2, 2e-2)
+# DDIM-4 fused (fp32 head output into the update) against unfused (the
+# model's bf16 output), relative L2 of the samples: bf16 rounding of v at
+# each step, carried through the next steps' bf16 model
+DDIM_REL = 5e-2
+# Attention on the card (bf16, the flash kernel) against the CPU in fp32,
+# relative L2 of the output and of every gradient
+ATTN_REL = 3e-2
+ATTN_SHAPE = (4, 384, 64, 64)  # B, C, H, W: 4096 tokens, 4 heads of 32
 
 
 def log(msg: str) -> None:
@@ -258,7 +287,173 @@ def phase_kernels(seed: int):
     torch.cuda.empty_cache()
     results.update(kernels_training(randn))
     torch.cuda.empty_cache()
+    results.update(kernels_ddim(randn))
+    results.update(kernels_wgrad(randn, seed))
+    results.update(kernels_attention(randn))
+    torch.cuda.empty_cache()
     return results
+
+
+def kernels_ddim(randn):
+    """The DDIM tail at the canonical shape: a middle step of DDIM-100 with
+    no noise (eta 0, the main path) and one with noise; no PyTorch call
+    computes the head and the update together, so library_ms is null."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import (
+        ddim_step_scalars, fused_ddim_head_update, reference_ddim_head_update)
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+
+    c = DIM
+    x, sa, sb = (randn(BATCH, CROP, CROP, c, dtype=torch.bfloat16) for _ in range(3))
+    p = (randn(c, c, scale=c ** -0.5), 0.1 * randn(c), randn(4, c, scale=c ** -0.5),
+         0.1 * randn(4), randn(4, c, scale=c ** -0.5), 0.1 * randn(4))
+    xt, z = randn(BATCH, CROP, CROP, 4), randn(BATCH, CROP, CROP, 4)
+    ac = make_schedule("sigmoid2", 1000).alphas_cumprod
+    alpha, alpha_next = ac[499], ac[489]
+    rows = []
+    for sigma in (0.0, 0.1):
+        noise = z if sigma else None
+        scal = ddim_step_scalars(alpha, alpha_next, sigma,
+                                 (1.0 - alpha_next - sigma ** 2) ** 0.5)
+        args = (x, sa, sb, xt, noise) + p + (scal,)
+        err = compare("ddim_head", fused_ddim_head_update(*args),
+                      reference_ddim_head_update(*args))
+        ms = time_ms(lambda: fused_ddim_head_update(*args))
+        plain = time_ms(lambda: reference_ddim_head_update(*args), reps=5)
+        pix = BATCH * CROP * CROP
+        moved = 3 * nbytes(x) + 2 * nbytes(xt) + (nbytes(z) if sigma else 0) \
+            + (c * c + 8 * c + c + 8) * 4
+        b_ms, b_by = bound(moved, 2 * pix * (c * c + 8 * c), PEAK_BF16_FLOPS)
+        # the main path (eta 0) runs one call per evaluation; the noisy
+        # variant is checked and timed, not counted
+        rows.append(dict(shape=[BATCH, CROP, CROP, c], sigma=sigma, calls=0 if sigma else 1,
+                         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, max_abs_err=err))
+        log(f"  ddim_head {CROP}^2 x {c} sigma {sigma}: {ms:.4f} ms (plain {plain:.4f}, bound "
+            f"{b_ms:.4f} {b_by}), max abs err {err:.3g}")
+    return {"ddim_head": rows}
+
+
+def wgrad_conv_shapes(seed: int):
+    """Every conv of a canonical training step (dim 48, B 4, 512^2) that
+    takes the conv_wgrad route under NOISEDIFF_WGRAD=pallas, as
+    {(H, W, Ci, Co, k): count}, read by hooks on one forward on the card."""
+    import torch
+
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.models.blocks import Conv2d
+
+    torch.manual_seed(seed)
+    dev = torch.device("cuda")
+    model = NoiseDiffNet(dim=DIM, dtype=torch.bfloat16).to(dev, memory_format=torch.channels_last)
+    model.train()
+    shapes = {}
+
+    def hook(mod, args):
+        if mod.wgrad_route(args[0]):
+            key = (args[0].shape[2], args[0].shape[3], mod.in_channels, mod.out_channels,
+                   mod.kernel_size[0])
+            shapes[key] = shapes.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, Conv2d)]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = _canonical_batch(g, dev)
+    cond = {"clean_img": batch["clean_img"], "position": batch["coord"],
+            "iso_ratio_idx": batch["iso_ratio_idx"]}
+    before = os.environ.get("NOISEDIFF_WGRAD")
+    os.environ["NOISEDIFF_WGRAD"] = "pallas"
+    try:
+        with torch.no_grad():
+            model(batch["noise"], torch.full((BATCH,), 500, device=dev), cond)
+    finally:
+        if before is None:
+            del os.environ["NOISEDIFF_WGRAD"]
+        else:
+            os.environ["NOISEDIFF_WGRAD"] = before
+        for h in handles:
+            h.remove()
+    return shapes
+
+
+def kernels_wgrad(randn, seed: int):
+    """conv_wgrad at every conv shape of a training step, against the tap
+    sum, and cuDNN's wgrad (aten.convolution_backward, weight only) as the
+    library call."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import conv_wgrad, reference_conv_wgrad
+
+    shapes = wgrad_conv_shapes(seed)
+    log(f"  conv_wgrad: {sum(shapes.values())} routed convs per training step, "
+        f"{len(shapes)} shapes")
+    rows = []
+    for (h, w, ci, co, k), count in sorted(shapes.items(), key=lambda kv: (-kv[0][0], kv[0])):
+        x = randn(BATCH, h, w, ci, dtype=torch.bfloat16)
+        g = randn(BATCH, h, w, co, scale=0.1, dtype=torch.bfloat16)
+        got = conv_wgrad(g, x, k, k)
+        err = compare_scaled("conv_wgrad", got, reference_conv_wgrad(g, x, k, k), SUM_RTOL)
+        if not torch.equal(got, conv_wgrad(g, x, k, k)):
+            raise AssertionError(f"conv_wgrad {h}^2 {ci}->{co} k{k}: two calls differ")
+        wt = torch.zeros((co, ci, k, k), device=x.device, dtype=torch.bfloat16)
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels-last views
+
+        def library():
+            return torch.ops.aten.convolution_backward(
+                gn, xn, wt, None, [1, 1], [k // 2] * 2, [1, 1], False, [0, 0], 1,
+                [False, True, False])
+
+        ms = time_ms(lambda: conv_wgrad(g, x, k, k))
+        lib_ms = time_ms(library)
+        plain = time_ms(lambda: reference_conv_wgrad(g, x, k, k), reps=3)
+        b_ms, b_by = bound(nbytes(x) + nbytes(g) + got.numel() * 4,
+                           2 * BATCH * h * w * k * k * ci * co, PEAK_BF16_FLOPS)
+        rows.append(dict(shape=[BATCH, h, w, ci, co, k], calls=count, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, max_abs_err=err))
+        log(f"  conv_wgrad {h}^2 {ci}->{co} {k}x{k} (x{count}): {ms:.4f} ms (plain {plain:.4f}, "
+            f"cuDNN {lib_ms:.4f}, bound {b_ms:.4f} {b_by}), max abs err {err:.3g}")
+        del x, g, got
+    return {"conv_wgrad": rows}
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+def kernels_attention(randn):
+    """flash_attention at blocks.Attention's shape in the attention phase
+    (B 4, 4 heads of 32, 64^2 tokens), against the plain version, with
+    F.scaled_dot_product_attention as the library call. The bound counts
+    the exponentials too, at 16 per SM per clock (the SFU rate) at the
+    card's maximum SM clock."""
+    import torch
+    import torch.nn.functional as F
+
+    from noisediff_tpu_torch.ops.kernels import _build, flash_attention, reference_flash_attention
+
+    b, c, h, w = ATTN_SHAPE
+    heads, d, n = 4, 32, h * w
+    q, k, v = (randn(b, heads, n, d, dtype=torch.bfloat16) for _ in range(3))
+    err = compare("flash_attention", flash_attention(q, k, v), reference_flash_attention(q, k, v))
+    ms = time_ms(lambda: flash_attention(q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    plain = time_ms(lambda: reference_flash_attention(q, k, v), reps=5)
+    exps = b * heads * n * n
+    exp_ms = exps / (16 * _build.sm_count(q.device) * max_sm_clock_hz()) * 1e3
+    b_ms, b_by = bound(4 * nbytes(q), 4 * b * heads * n * n * d, PEAK_BF16_FLOPS)
+    if exp_ms > b_ms:
+        b_ms, b_by = exp_ms, "operations"
+    log(f"  flash_attention {b}x{heads}x{n}x{d}: {ms:.4f} ms (plain {plain:.4f}, SDPA "
+        f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by}: exponentials {exp_ms:.4f}), max abs err "
+        f"{err:.3g}")
+    return {"flash_attention": [dict(shape=[b, heads, n, d], calls=1, ms=ms, plain_ms=plain,
+                                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                     max_abs_err=err)]}
 
 
 def kernels_training(randn):
@@ -490,24 +685,64 @@ def phase_train_check(seed: int):
         return float(loss), {n: (None if p.grad is None else p.grad.float().cpu())
                              for n, p in model.named_parameters()}
 
+    from noisediff_tpu_torch.ops.kernels import conv_wgrad
+
     loss32, g32 = step(None, torch.device("cpu"))
     loss16, g16 = step(torch.bfloat16, torch.device("cpu"))
     loss_card, gc = step(torch.bfloat16, torch.device("cuda"))
     out = {"loss_card": loss_card, "loss_cpu_bf16": loss16, "loss_cpu_fp32": loss32}
+    log(f"  CPU fp32 loss {loss32:.6f}")
     # bf16 through ~60 layers forward and back on both sides: the loss
     # within 2e-2, each gradient as close to the fp32 one as the CPU's bf16
     # gradient is (within 2x + 0.02), all gradients within 5e-2 of the CPU
     # bf16 ones
-    if abs(loss_card - loss16) > 2e-2 * abs(loss16):
-        raise AssertionError(f"train_check: loss {out}")
+    out.update(_check_grads("train_check", b, s, loss_card, gc, loss16, g16, g32))
+
+    # the same step through the conv_wgrad route
+    n0 = conv_wgrad.launches
+    os.environ["NOISEDIFF_WGRAD"] = "pallas"
+    try:
+        loss_w, gw = step(torch.bfloat16, torch.device("cuda"))
+    finally:
+        del os.environ["NOISEDIFF_WGRAD"]
+    routed = conv_wgrad.launches - n0
+    if routed == 0:
+        raise AssertionError("train_wgrad check: no conv_wgrad launch in the step")
+    out["wgrad"] = _check_grads("train_wgrad check", b, s, loss_w, gw, loss16, g16, g32)
+    # against the card's cuDNN-wgrad step: cuDNN rounds each weight
+    # gradient to bf16, the kernel keeps fp32
+    names = [n for n in gc if not is_unread_parameter(n)]
+    vs_cudnn = rel_l2(torch.cat([gw[n].flatten() for n in names]),
+                      torch.cat([gc[n].flatten() for n in names]))
+    worst = max((rel_l2(gw[n], gc[n]), n) for n in names)
+    out["wgrad"].update(loss=loss_w, conv_wgrad_launches=routed, rel_l2_vs_cudnn=vs_cudnn,
+                        worst_param_vs_cudnn=worst)
+    log(f"  with NOISEDIFF_WGRAD=pallas ({routed} conv_wgrad launches): loss {loss_w:.6f}; "
+        f"all gradients vs the cuDNN-wgrad step rel L2 {vs_cudnn:.4g}, worst parameter "
+        f"{worst[0]:.4g} ({worst[1]})")
+    if vs_cudnn > GRAD_REL:
+        raise AssertionError(f"train_wgrad check: gradients disagree with cuDNN's: {out}")
+    return out
+
+
+def _check_grads(what, b, s, loss, grads, loss16, g16, g32):
+    """A card step's loss and gradients against the CPU's bf16 and fp32
+    steps, within train_check's bounds."""
+    import torch
+
+    from noisediff_tpu_torch.models import is_unread_parameter
+
+    out = {}
+    if abs(loss - loss16) > 2e-2 * abs(loss16):
+        raise AssertionError(f"{what}: loss {loss} against CPU bf16 {loss16}")
     bad, worst, cat_c, cat_16 = {}, 0.0, [], []
-    for name, gr in gc.items():
+    for name, gr in grads.items():
         if is_unread_parameter(name):
             if gr is not None:
-                raise AssertionError(f"train_check: {name} is never read but has a gradient")
+                raise AssertionError(f"{what}: {name} is never read but has a gradient")
             continue
         if gr is None or not bool(torch.isfinite(gr).all()):
-            raise AssertionError(f"train_check: {name} has no finite gradient on the card")
+            raise AssertionError(f"{what}: {name} has no finite gradient on the card")
         r = rel_l2(gr, g32[name])
         limit = 2 * rel_l2(g16[name], g32[name]) + 0.02
         worst = max(worst, rel_l2(gr, g16[name]))
@@ -517,13 +752,12 @@ def phase_train_check(seed: int):
         cat_16.append(g16[name].flatten())
     out["grad_rel_l2_all"] = rel_l2(torch.cat(cat_c), torch.cat(cat_16))
     out["grad_rel_l2_worst_param"] = worst
-    n_read = sum(1 for n in gc if not is_unread_parameter(n))
-    log(f"  dim-48 train step {b}x{s}^2: loss card {loss_card:.6f}, CPU bf16 {loss16:.6f}, "
-        f"CPU fp32 {loss32:.6f}; {n_read} read parameters with finite gradients on the card; "
-        f"all gradients vs CPU bf16 rel L2 {out['grad_rel_l2_all']:.4g}, worst parameter "
-        f"{worst:.4g}")
+    n_read = sum(1 for n in grads if not is_unread_parameter(n))
+    log(f"  {what}: dim-48 train step {b}x{s}^2: loss card {loss:.6f}, CPU bf16 {loss16:.6f}; "
+        f"{n_read} read parameters with finite gradients on the card; all gradients vs CPU "
+        f"bf16 rel L2 {out['grad_rel_l2_all']:.4g}, worst parameter {worst:.4g}")
     if bad or out["grad_rel_l2_all"] > 5e-2:
-        raise AssertionError(f"train_check: gradients disagree: {bad} {out}")
+        raise AssertionError(f"{what}: gradients disagree: {bad} {out}")
     return out
 
 
@@ -548,18 +782,19 @@ def make_train_tree(root: str, seed: int) -> None:
         f.write("\n".join(lines) + "\n")
 
 
-def phase_train(seed: int, workdir: str):
-    """Training through the CLI at the canonical config; the counted run of
-    the training path."""
+def train_cli(seed: int, workdir: str, out_name: str, per_step, what: str):
+    """One training run through the CLI over the tree in workdir, counted
+    from zero: losses, each kernel's launches per step, and the rate over
+    the window after the first 3 steps on the device's clock from the end
+    of step 3 to the end of the last (loader waits and uploads fall in
+    between)."""
     import numpy as np
     import torch
 
-    from noisediff_tpu_torch.cli import test_diffusion, train_diffusion
-    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.cli import train_diffusion
     from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    make_train_tree(workdir, seed)
-    out = os.path.join(workdir, "train")
+    out = os.path.join(workdir, out_name)
     argv = [
         "--use_tb_logger", "--save_epoch_freq", "1", "--generation_result", "noise",
         "--name", "train_diffusion", "--net_name", "NoiseDiffNet", "--beta_schedule", "sigmoid2",
@@ -578,23 +813,13 @@ def phase_train(seed: int, workdir: str):
 
     steps = summary["steps"]
     if steps != TRAIN_STEPS:
-        raise AssertionError(f"expected {TRAIN_STEPS} steps: {summary['steps']}")
+        raise AssertionError(f"{what}: expected {TRAIN_STEPS} steps: {summary['steps']}")
     if not all(np.isfinite(summary["losses"])):
-        raise AssertionError(f"non-finite losses: {summary['losses']}")
-    per_step = {"fused_attn_tail": 9, "fused_attn_tail_bwd": 9, "gn_stats": 44,
-                "gn_grad_stats": 44, "fused_dual_head": 1, "fused_groupnorm_film_silu": 0}
+        raise AssertionError(f"{what}: non-finite losses: {summary['losses']}")
     for name, want in per_step.items():
         if counts[name] != want * steps:
-            raise AssertionError(f"{name}: {counts[name]} launches in {steps} training steps, "
-                                 f"expected {want} per step")
-    snap = os.path.join(out, "train_diffusion", "snapshot")
-    for comp in ("net", "ema"):
-        sd = torch.load(os.path.join(snap, f"{comp}_final.pth"), map_location="cpu",
-                        weights_only=True)
-        NoiseDiffNet(dim=DIM).load_state_dict(sd, strict=True)
-    # the rate over the window after the first 3 steps, on the device's
-    # clock from the end of step 3 to the end of the last: every loader wait
-    # and upload in between shows as a later end
+            raise AssertionError(f"{what}: {name}: {counts[name]} launches in {steps} training "
+                                 f"steps, expected {want} per step")
     ends, secs = summary["step_end_seconds"], summary["step_seconds"]
     period = (ends[-1] - ends[2]) / (steps - 3)
     rate = 1.0 / period
@@ -609,30 +834,107 @@ def phase_train(seed: int, workdir: str):
         f"{q[2]:.5f}, quartiles {q[1]:.5f} / {q[3]:.5f}, min {q[0]:.5f}, max {q[4]:.5f}; "
         f"first 3 {[round(v, 4) for v in secs[:3]]}")
     log(f"  peak device memory {peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated)")
-    log(f"  launches on the training path: {counts}")
+    log(f"  launches: {counts}")
+    return dict(out=out, counts=counts, steps=steps, steps_per_s=rate, samples_per_s=BATCH * rate,
+                period_ms=period * 1e3, epoch_seconds=epoch_s, loader_wait_seconds=waited,
+                step_seconds=secs, peak_bytes=peak, losses=summary["losses"])
+
+
+# kernel launches per training step on the default route
+TRAIN_PER_STEP = {"fused_attn_tail": 9, "fused_attn_tail_bwd": 9, "gn_stats": 44,
+                  "gn_grad_stats": 44, "fused_dual_head": 1, "fused_groupnorm_film_silu": 0,
+                  "fused_ddim_head_update": 0, "conv_wgrad": 0, "flash_attention": 0}
+
+
+def phase_train(seed: int, workdir: str):
+    """Training through the CLI at the canonical config; the counted run of
+    the training path."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.cli import test_diffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+
+    make_train_tree(workdir, seed)
+    res = train_cli(seed, workdir, "train", TRAIN_PER_STEP, "train")
+    out = res["out"]
+    snap = os.path.join(out, "train_diffusion", "snapshot")
+    for comp in ("net", "ema"):
+        sd = torch.load(os.path.join(snap, f"{comp}_final.pth"), map_location="cpu",
+                        weights_only=True)
+        NoiseDiffNet(dim=DIM).load_state_dict(sd, strict=True)
 
     # generation from the trained net through the generation CLI
     gen = os.path.join(workdir, "gen")
     make_sid_tree(gen, seed)
-    gen_argv = [
-        "--name", "from_net_final", "--resume", os.path.join(snap, "net_final.pth"),
-        "--generation_result", "noise", "--testset", "NoiseImageGenerationDataset",
-        "--save_npy", "--random_seed", str(seed), "--beta_schedule", "sigmoid2",
-        "--batch_size", str(BATCH), "--net_name", "NoiseDiffNet", "--positional_encoding",
-        "--dim", str(DIM), "--crop_size", str(CROP), "--with_camera_settings",
-        "--sampler", "dpm", "--device", "cuda", "--num_workers", "2", "--iso", "800",
-        "--ratio", "250", "--sid_folder", os.path.join(gen, "SID"), "--pretrained_dir", gen,
-        "--save_folder", os.path.join(gen, "out"),
-    ]
-    g = test_diffusion.main(gen_argv)
+    argv = gen_argv(gen, os.path.join(snap, "net_final.pth"), seed, "out", ["--sampler", "dpm"])
+    g = test_diffusion.main(argv)
     files = glob.glob(os.path.join(g["out_dir"], "*.npy"))
     if g["generated"] != len(files) or not files or not all(
             np.isfinite(np.load(f)).all() for f in files):
         raise AssertionError(f"generation from net_final.pth: {g}")
     log(f"  generated {len(files)} patches from net_final.pth through the generation CLI")
-    return dict(counts=counts, steps=steps, steps_per_s=rate, samples_per_s=BATCH * rate,
-                period_ms=period * 1e3, epoch_seconds=epoch_s, loader_wait_seconds=waited,
-                step_seconds=secs, peak_bytes=peak)
+    return res
+
+
+def phase_train_wgrad(seed: int, workdir: str, routed_per_step: int, default_rate: float):
+    """Training through the CLI with NOISEDIFF_WGRAD=pallas over the tree
+    phase_train made: the conv_wgrad route's launches per step and its
+    steps/s beside the default run's."""
+    per_step = dict(TRAIN_PER_STEP, conv_wgrad=routed_per_step)
+    os.environ["NOISEDIFF_WGRAD"] = "pallas"
+    try:
+        res = train_cli(seed, workdir, "train_wgrad", per_step, "train_wgrad")
+    finally:
+        del os.environ["NOISEDIFF_WGRAD"]
+    log(f"  conv_wgrad route: {res['steps_per_s']:.4f} steps/s against the default route's "
+        f"{default_rate:.4f} in this run; {routed_per_step} conv_wgrad launches per step")
+    return res
+
+
+def phase_attention(seed: int):
+    """blocks.Attention forward and backward on the card (bf16, the flash
+    kernel) against the CPU (fp32): the output, the input's and every
+    parameter's gradient by relative L2."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.models.blocks import Attention
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    b, c, h, w = ATTN_SHAPE
+    torch.manual_seed(seed)
+    cpu = Attention(c)
+    card = Attention(c)
+    card.load_state_dict(cpu.state_dict())
+    dev = torch.device("cuda")
+    card = card.to(dev)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).permute(0, 3, 1, 2)
+    gy = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).permute(0, 3, 1, 2)
+
+    reset_launch_counts()
+    xc = x.to(dev, torch.bfloat16).requires_grad_(True)
+    y = card(xc)
+    (y.float() * gy.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["flash_attention"] != 1:
+        raise AssertionError(f"attention: {counts['flash_attention']} flash_attention launches, "
+                             "expected 1")
+    xr = x.clone().requires_grad_(True)
+    yr = cpu(xr)
+    (yr * gy).sum().backward()
+    rels = {"out": rel_l2(y.detach().cpu(), yr.detach()), "x": rel_l2(xc.grad.cpu(), xr.grad)}
+    card_params = dict(card.named_parameters())
+    for name, p in cpu.named_parameters():
+        rels[name] = rel_l2(card_params[name].grad.cpu(), p.grad)
+    worst = max(rels, key=rels.get)
+    log(f"  Attention({c}) at {b}x{h}x{w} ({h * w} tokens), card bf16 vs CPU fp32, rel L2: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in rels.items()))
+    if rels[worst] > ATTN_REL or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"attention: card and CPU disagree: {rels}")
+    return dict(counts=counts, rel_l2=rels)
 
 
 def phase_train_profile(seed: int, cli_period_ms: float):
@@ -732,119 +1034,198 @@ def make_sid_tree(root: str, seed: int) -> None:
         f.write("./Sony/short/00001_00_0.04s.ARW ./Sony/long/00001_00_10s.ARW ISO800 F1.8\n")
 
 
-def phase_main(seed: int, workdir: str):
-    import numpy as np
+def gen_setup(workdir: str, seed: int) -> str:
+    """The generation phases' miniature SID tree and seeded random weights,
+    saved as a reference-layout .pth with DDP-style keys; returns its path."""
     import torch
 
-    from noisediff_tpu_torch.cli import test_diffusion
     from noisediff_tpu_torch.models import NoiseDiffNet
-    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     make_sid_tree(workdir, seed)
     torch.manual_seed(seed)
     ckpt = os.path.join(workdir, "net_seeded.pth")
     sd = NoiseDiffNet(dim=DIM).state_dict()
-    torch.save({"module." + k: v for k, v in sd.items()}, ckpt)  # DDP-style keys
-    argv = [
+    torch.save({"module." + k: v for k, v in sd.items()}, ckpt)
+    return ckpt
+
+
+def gen_argv(workdir: str, ckpt: str, seed: int, out: str, sampler):
+    return [
         "--name", "ISO800_Ratio250", "--resume", ckpt, "--generation_result", "noise",
         "--testset", "NoiseImageGenerationDataset", "--save_npy", "--random_seed", str(seed),
         "--beta_schedule", "sigmoid2", "--batch_size", str(BATCH), "--net_name", "NoiseDiffNet",
         "--positional_encoding", "--dim", str(DIM), "--crop_size", str(CROP),
-        "--with_camera_settings", "--sampler", "dpm", "--dpm_spacing", "lambda",
+        "--with_camera_settings", *sampler,
         "--device", "cuda", "--num_workers", "2", "--iso", "800", "--ratio", "250",
         "--sid_folder", os.path.join(workdir, "SID"), "--pretrained_dir", workdir,
-        "--save_folder", os.path.join(workdir, "out"),
+        "--save_folder", os.path.join(workdir, out),
     ]
+
+
+def run_generation(argv, per_batch, what: str):
+    """One generation run through the CLI, counted from zero: the npy
+    contract and each kernel's launches per batch; returns the summary,
+    the counts and the files."""
+    import numpy as np
+
+    from noisediff_tpu_torch.cli import test_diffusion
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
     reset_launch_counts()
     summary = test_diffusion.main(argv)
     counts = launch_counts()
 
     n = summary["generated"]
     if n != N_BATCHES * BATCH or summary["batches"] != N_BATCHES:
-        raise AssertionError(f"expected {N_BATCHES} batches of {BATCH} patches: {summary}")
-    per_batch = {"fused_attn_tail": 9 * DPM_STEPS, "fused_groupnorm_film_silu": 42 * DPM_STEPS,
-                 "fused_dual_head": DPM_STEPS, "fused_attn_tail_bwd": 0, "gn_stats": 0,
-                 "gn_grad_stats": 0}
+        raise AssertionError(f"{what}: expected {N_BATCHES} batches of {BATCH} patches: {summary}")
     for name, want in per_batch.items():
         if counts[name] != want * N_BATCHES:
-            raise AssertionError(f"{name}: {counts[name]} launches, expected {want} per batch "
-                                 f"x {N_BATCHES} batches")
+            raise AssertionError(f"{what}: {name}: {counts[name]} launches, expected {want} per "
+                                 f"batch x {N_BATCHES} batches")
     files = sorted(glob.glob(os.path.join(summary["out_dir"], "*.npy")))
     if len(files) != n or glob.glob(os.path.join(summary["out_dir"], "*.tmp.npy")):
-        raise AssertionError(f"{len(files)} npy files for {n} patches, or temp files left")
+        raise AssertionError(f"{what}: {len(files)} npy files for {n} patches, or temp files left")
     for path in files:
         base = os.path.basename(path)[:-4]
         clean, noisy, coord = base.split("+")
         if clean != noisy or not clean.endswith("_00_10s") or coord not in GRID_NAMES:
-            raise AssertionError(f"unexpected output name {base}")
+            raise AssertionError(f"{what}: unexpected output name {base}")
         arr = np.load(path)
         if arr.shape != (4, CROP, CROP) or arr.dtype != np.float32 or not np.isfinite(arr).all():
-            raise AssertionError(f"{base}: {arr.shape} {arr.dtype} or not finite")
+            raise AssertionError(f"{what}: {base}: {arr.shape} {arr.dtype} or not finite")
     secs = summary["batch_seconds"]
     rate = n / sum(secs)
     steady = BATCH * (len(secs) - 1) / sum(secs[1:])
     log(f"  generated {n} patches of {CROP}^2 in {sum(secs):.3f} s of sampling: "
         f"{rate:.4f} patches/s ({steady:.4f} after the first batch); batch seconds "
         f"{[round(s, 4) for s in secs]}")
-    log(f"  launches on the main path: {counts}")
+    log(f"  launches: {counts}")
+    return dict(counts=counts, patches=n, patches_per_s=rate, steady_patches_per_s=steady,
+                batch_seconds=secs, files=files)
+
+
+def phase_main(seed: int, workdir: str, ckpt: str):
+    import numpy as np
+
+    from noisediff_tpu_torch.cli import test_diffusion
+
+    argv = gen_argv(workdir, ckpt, seed, "out", ["--sampler", "dpm", "--dpm_spacing", "lambda"])
+    per_batch = {"fused_attn_tail": 9 * DPM_STEPS, "fused_groupnorm_film_silu": 42 * DPM_STEPS,
+                 "fused_dual_head": DPM_STEPS, "fused_attn_tail_bwd": 0, "gn_stats": 0,
+                 "gn_grad_stats": 0, "fused_ddim_head_update": 0, "conv_wgrad": 0,
+                 "flash_attention": 0}
+    out = run_generation(argv, per_batch, "main")
 
     # resume: a deleted patch comes back identical, nothing else is resampled
-    victim = files[0]
+    victim = out.pop("files")[0]
     before = np.load(victim)
     os.remove(victim)
     again = test_diffusion.main(argv + ["--skip_existing"])
     if again["batches"] != 1 or not np.array_equal(np.load(victim), before):
         raise AssertionError(f"--skip_existing did not regenerate {victim} identically: {again}")
     log("  --skip_existing regenerated the deleted patch bit-identically")
-    return dict(counts=counts, patches=n, patches_per_s=rate, steady_patches_per_s=steady,
-                batch_seconds=secs)
+    return out
+
+
+def phase_ddim(seed: int, workdir: str, ckpt: str):
+    """DDIM-100 through the CLI (the fused tail), then DDIM-4 fused against
+    unfused from the same noise at full width."""
+    import torch
+
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.ops.kernels import fused_ddim_head_update, fused_dual_head
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+
+    argv = gen_argv(workdir, ckpt, seed, "out_ddim",
+                    ["--sampler", "ddim", "--sampling_timesteps", str(DDIM_STEPS)])
+    per_batch = {"fused_attn_tail": 9 * DDIM_STEPS, "fused_groupnorm_film_silu": 42 * DDIM_STEPS,
+                 "fused_ddim_head_update": DDIM_STEPS, "fused_dual_head": 0,
+                 "fused_attn_tail_bwd": 0, "gn_stats": 0, "gn_grad_stats": 0, "conv_wgrad": 0,
+                 "flash_attention": 0}
+    out = run_generation(argv, per_batch, "ddim")
+    out.pop("files")
+
+    torch.manual_seed(seed)
+    dev = torch.device("cuda")
+    model = NoiseDiffNet(dim=DIM, dtype=torch.bfloat16).to(dev, memory_format=torch.channels_last)
+    model.eval()
+    gd = GaussianDiffusion(model, make_schedule("sigmoid2", 1000), image_size=CROP, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = _canonical_batch(g, dev)
+    cond = {"clean_img": batch["clean_img"], "position": batch["coord"],
+            "iso_ratio_idx": batch["iso_ratio_idx"]}
+    x = torch.randn((BATCH, CROP, CROP, 4), generator=g, device=dev)
+
+    def trunk_fn(xx, t, c):
+        return (*model.trunk(xx, t, c), model.head_weights())
+
+    n_tail, n_head = fused_ddim_head_update.launches, fused_dual_head.launches
+    fused = gd.ddim_sample(x.shape, cond, sampling_timesteps=4, init_noise=x, trunk_fn=trunk_fn)
+    if (fused_ddim_head_update.launches - n_tail, fused_dual_head.launches - n_head) != (4, 0):
+        raise AssertionError("ddim: the fused DDIM-4 sample did not run the ddim_head kernel 4 "
+                             "times")
+    unfused = gd.ddim_sample(x.shape, cond, sampling_timesteps=4, init_noise=x)
+    rel = rel_l2(fused, unfused)
+    err = float((fused - unfused).abs().max())
+    log(f"  DDIM-4 at {BATCH}x{CROP}^2, dim {DIM}: fused tail vs unfused rel L2 {rel:.4g}, max abs "
+        f"{err:.4g}")
+    if not bool(torch.isfinite(fused).all()) or rel > DDIM_REL:
+        raise AssertionError(f"ddim: fused and unfused DDIM-4 disagree: rel L2 {rel}")
+    out.update(fused_vs_unfused_rel_l2=rel, fused_vs_unfused_max_abs=err)
+    return out
 
 
 # ---------------------------------------------------------------------------
-KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, path of its timed calls)
+KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is summed over)
     "attn_tail": ("fused_attn_tail", "noisediff_tpu_torch/csrc/attn_tail.cu",
-                  "noisediff_tpu/ops/pallas/attn_tail.py:190", "generation"),
+                  "noisediff_tpu/ops/pallas/attn_tail.py:190", "evaluation"),
     "groupnorm_silu": ("fused_groupnorm_film_silu",
                        "noisediff_tpu_torch/csrc/groupnorm_silu.cu",
-                       "noisediff_tpu/ops/pallas/groupnorm_silu.py:105", "generation"),
+                       "noisediff_tpu/ops/pallas/groupnorm_silu.py:105", "evaluation"),
     "dual_head": ("fused_dual_head", "noisediff_tpu_torch/csrc/dual_head.cu",
-                  "noisediff_tpu/ops/pallas/dual_head.py:77", "generation"),
+                  "noisediff_tpu/ops/pallas/dual_head.py:77", "evaluation"),
     "attn_tail_bwd": ("fused_attn_tail_bwd", "noisediff_tpu_torch/csrc/attn_tail.cu",
-                      "noisediff_tpu/ops/pallas/attn_tail.py:307", "training"),
+                      "noisediff_tpu/ops/pallas/attn_tail.py:307", "training step"),
     "gn_stats": ("gn_stats", "noisediff_tpu_torch/csrc/gn_stats.cu",
-                 "noisediff_tpu/ops/pallas/gn_stats.py:64", "training"),
+                 "noisediff_tpu/ops/pallas/gn_stats.py:64", "training step"),
     "gn_grad_stats": ("gn_grad_stats", "noisediff_tpu_torch/csrc/gn_stats.cu",
-                      "noisediff_tpu/ops/pallas/gn_stats.py:246", "training"),
+                      "noisediff_tpu/ops/pallas/gn_stats.py:246", "training step"),
+    "ddim_head": ("fused_ddim_head_update", "noisediff_tpu_torch/csrc/dual_head.cu",
+                  "noisediff_tpu/ops/pallas/ddim_head.py:132", "DDIM evaluation"),
+    "conv_wgrad": ("conv_wgrad", "noisediff_tpu_torch/csrc/conv_wgrad.cu",
+                   "noisediff_tpu/ops/pallas/conv_wgrad.py:119", "wgrad-route training step"),
+    "flash_attention": ("flash_attention", "noisediff_tpu_torch/csrc/flash_attention.cu",
+                        "noisediff_tpu/ops/pallas/flash_attention.py:68", "Attention call"),
 }
 
 
-def kernels_line(results, gen_counts, train_counts, train_steps):
-    """One entry per kernel. ms, plain_ms and bound_ms are summed over the
-    calls of one model evaluation at the canonical generation config (the
-    generation kernels) or of one training step at the canonical training
-    config (the training kernels): each shape's median time times its calls
-    (`ms_per`); per_shape has each shape's numbers. `launches` is the
-    wrapper's count over the two main-path runs, each counted from zero:
-    the main phase's N_BATCHES generated batches and the train phase's
-    training steps; launches_per_batch and launches_per_step divide them."""
+def kernels_line(results, launches):
+    """One entry per kernel. ms, plain_ms, bound_ms and library_ms are
+    summed over the calls of one model evaluation at the canonical
+    generation config, one training step at the canonical training config,
+    one DDIM evaluation, one training step on the conv_wgrad route or one
+    Attention call (`ms_per`): each shape's median time times its calls;
+    per_shape has each shape's numbers. `launches[name]` is (launches, the
+    fields that split them): the wrapper's count over the main-path run(s)
+    that exercise the kernel, each counted from zero."""
     out = []
     for name, rows in results.items():
-        wrapper, source, replaces, path = KERNEL_META[name]
+        wrapper, source, replaces, per = KERNEL_META[name]
         tot = {k: sum(r[k] * r["calls"] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+        counted = [r for r in rows if r["calls"]]
+        lib = (sum(r["library_ms"] * r["calls"] for r in counted)
+               if all(r.get("library_ms") is not None for r in counted) else None)
         # the bound of the shapes that carry most of the bound time
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "bytes")
-        gen, train = gen_counts[wrapper], train_counts[wrapper]
+        n, split = launches[name]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": gen + train,
-            "launches_generation": gen, "launches_per_batch": gen / N_BATCHES,
-            "launches_training": train, "launches_per_step": train / train_steps,
+            "launches": n, **split,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
-            "library_ms": None,
-            "ms_per": "evaluation" if path == "generation" else "training step",
-            "per_shape": rows,
+            "library_ms": lib, "ms_per": per, "per_shape": rows,
         })
     return {"kernels": out}
 
@@ -886,29 +1267,50 @@ def main(argv=None) -> int:
 
     log("[kernels] kernel vs plain version on the card")
     results = phase_kernels(args.seed)
+    routed_per_step = sum(r["calls"] for r in results["conv_wgrad"])
     log("[model] full-width forward, card vs CPU")
     phase_model(args.seed)
     log("[profile] where one model evaluation spends its time")
     phase_profile(args.seed)
-    log("[main] bulk generation through the CLI")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        gen_counts = phase_main(args.seed, workdir)["counts"]
+        ckpt = gen_setup(workdir, args.seed)
+        log("[main] bulk generation through the CLI")
+        gen = phase_main(args.seed, workdir, ckpt)
+        log("[ddim] DDIM-100 generation through the CLI, the fused DDIM tail")
+        ddim = phase_ddim(args.seed, workdir, ckpt)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("[train_check] full-width training step, card vs CPU")
     phase_train_check(args.seed)
-    log("[train] training through the CLI at the canonical config")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        log("[train] training through the CLI at the canonical config")
         train = phase_train(args.seed, workdir)
+        log("[train_wgrad] training through the CLI on the conv_wgrad route")
+        wgrad = phase_train_wgrad(args.seed, workdir, routed_per_step, train["steps_per_s"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("[train profile] where a training step spends its time")
     phase_train_profile(args.seed, train["period_ms"])
+    log("[attention] blocks.Attention forward and backward, card vs CPU")
+    attn = phase_attention(args.seed)
     log(f"[done] {time.time() - t_start:.1f} s")
 
-    print(json.dumps(kernels_line(results, gen_counts, train["counts"], train["steps"])))
+    gc, tc, steps = gen["counts"], train["counts"], train["steps"]
+    launches = {}
+    for name in ("attn_tail", "groupnorm_silu", "dual_head", "attn_tail_bwd", "gn_stats",
+                 "gn_grad_stats"):
+        w = KERNEL_META[name][0]
+        launches[name] = (gc[w] + tc[w], {
+            "launches_generation": gc[w], "launches_per_batch": gc[w] / N_BATCHES,
+            "launches_training": tc[w], "launches_per_step": tc[w] / steps})
+    n = ddim["counts"]["fused_ddim_head_update"]
+    launches["ddim_head"] = (n, {"launches_per_batch": n / N_BATCHES})
+    n = wgrad["counts"]["conv_wgrad"]
+    launches["conv_wgrad"] = (n, {"launches_per_step": n / wgrad["steps"]})
+    launches["flash_attention"] = (attn["counts"]["flash_attention"], {})
+    print(json.dumps(kernels_line(results, launches)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -59,10 +59,10 @@
 //      buffer.
 //   2. attn_tail_bwd_vec_samples, attn_tail_bwd_vec: sum the per-block
 //      partials in a fixed order, per sample, then over the samples.
-//   3. wgrad_partial + sum_splits, once per weight: dW = A^T B over all
-//      pixels, a split-K WMMA product (64 x 64 output tiles, 64-pixel steps
-//      staged with cp.async), fp32 partials per split summed in a fixed
-//      order. No sum anywhere uses atomics, so the gradients are
+//   3. wgrad_partial + sum_splits (common.cuh), once per weight: dW = A^T B
+//      over all pixels, a split-K WMMA product (64 x 64 output tiles,
+//      64-pixel steps staged with cp.async), fp32 partials per split summed
+//      in a fixed order. No sum anywhere uses atomics, so the gradients are
 //      deterministic.
 // The scratch round trip (14 C bytes per pixel, about 0.7 GB at stage 0)
 // makes this slower than its bound: the weight gradients at C = 384 do not
@@ -665,16 +665,6 @@ __global__ void __launch_bounds__(128) wgrad_partial(const bf16* __restrict__ A,
       float* dst = part + ((size_t)blockIdx.z * M + m0 + warp * 16) * N + n0 + j * 16;
       wmma::store_matrix_sync(dst, acc[j], N, wmma::mem_row_major);
     }
-  }
-}
-
-__global__ void sum_splits(const float* __restrict__ part, float* __restrict__ out, int S,
-                           long long MN) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < MN; i += stride) {
-    float s = 0.0f;
-    for (int k = 0; k < S; ++k) s += part[(size_t)k * MN + i];
-    out[i] = s;
   }
 }
 

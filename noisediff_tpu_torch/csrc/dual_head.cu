@@ -5,6 +5,18 @@
 // Replaces the TPU kernel noisediff_tpu/ops/pallas/dual_head.py
 // (_forward / fused_dual_head).
 //
+// A second entry point, nd_ddim_head, is the DDIM sampler's fused tail and
+// replaces noisediff_tpu/ops/pallas/ddim_head.py (_kernel /
+// fused_ddim_head_update): the same head per pixel, then, in registers,
+//     x0  = clip(sqrt(a) x_t - sqrt(1 - a) v, -1, 1)
+//     eps = (sqrt(1 / a) x_t - x0) / sqrt(1 / a - 1)
+//     x'  = x0 sqrt(a_next) + c eps + sigma z
+// with the seven step scalars passed by value (no device tensor per step)
+// and the fp32 carry x' written in place of the head's output. Its bound
+// adds the carry's read and write: 335 MB at the canonical shape, 0.100 ms;
+// the noise read (16.8 MB more) is skipped when sigma is 0 (a null pointer:
+// 0 z = 0 exactly), as with the reference default eta = 0.
+//
 // Bound on this card: memory. Three bf16 maps of C channels are read and a
 // 4-channel fp32 map is written: at 512^2 x 48 x 4 that is 302 MB + 17 MB,
 // about 95 us at 3.35 TB/s. The products have N = 4 (and C = 48 for fc1),
@@ -27,13 +39,32 @@ namespace {
 
 constexpr int CO = 4;  // output channels
 
-template <int C>
+// The DDIM step's scalars (ddim_head.ddim_step_scalars): sqrt(a),
+// sqrt(1 - a), sqrt(1 / a), 1 / sqrt(1 / a - 1), sqrt(a_next), c, sigma.
+struct DdimStep {
+  float ac, one_m_ac, rac, iracm1, anext, c, sig;
+};
+
+// One output channel of the DDIM update, in the order of operations of
+// reference_ddim_head_update.
+__device__ __forceinline__ float ddim_update(float xt, float v, float z, const DdimStep& sc) {
+  const float x0 = fminf(fmaxf(sc.ac * xt - sc.one_m_ac * v, -1.0f), 1.0f);
+  const float eps = (sc.rac * xt - x0) * sc.iracm1;
+  float xn = x0 * sc.anext + sc.c * eps;
+  if (sc.sig != 0.0f) xn += sc.sig * z;
+  return xn;
+}
+
+// DDIM = false: out = the head (fp32). DDIM = true: out = the next carry
+// from the head, the carry xt and the noise nz (may be null: sigma is 0).
+template <int C, bool DDIM>
 __global__ void __launch_bounds__(128)
 dual_head_kernel(const bf16* __restrict__ x, const bf16* __restrict__ sa,
                  const bf16* __restrict__ sb, const float* __restrict__ w1,
                  const float* __restrict__ b1, const float* __restrict__ w2,
                  const float* __restrict__ b2, const float* __restrict__ wr,
-                 const float* __restrict__ br, float* __restrict__ out, long long P) {
+                 const float* __restrict__ br, float* __restrict__ out, long long P,
+                 const float* __restrict__ xt, const float* __restrict__ nz, DdimStep sc) {
   __shared__ __align__(16) float s_w1[C * C];   // (out, in)
   __shared__ __align__(16) float s_w2[CO * C];  // (out, in)
   __shared__ __align__(16) float s_wr[CO * C];  // (out, in)
@@ -102,21 +133,47 @@ dual_head_kernel(const bf16* __restrict__ x, const bf16* __restrict__ sa,
     res.y = (sn[1] + s_b2[1]) + rn[1] + s_br[1];
     res.z = (sn[2] + s_b2[2]) + rn[2] + s_br[2];
     res.w = (sn[3] + s_b2[3]) + rn[3] + s_br[3];
+    if (DDIM) {
+      const float4 xv = *reinterpret_cast<const float4*>(xt + p * CO);
+      float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (nz != nullptr) z = *reinterpret_cast<const float4*>(nz + p * CO);
+      res.x = ddim_update(xv.x, res.x, z.x, sc);
+      res.y = ddim_update(xv.y, res.y, z.y, sc);
+      res.z = ddim_update(xv.z, res.z, z.z, sc);
+      res.w = ddim_update(xv.w, res.w, z.w, sc);
+    }
     *reinterpret_cast<float4*>(out + p * CO) = res;
   }
 }
 
-template <int C>
+template <int C, bool DDIM>
 int launch(const void* x, const void* sa, const void* sb, const void* w1, const void* b1,
            const void* w2, const void* b2, const void* wr, const void* br, void* out,
-           long long P, int blocks, cudaStream_t st) {
-  dual_head_kernel<C><<<blocks, 128, 0, st>>>(
+           long long P, int blocks, cudaStream_t st, const void* xt, const void* nz,
+           DdimStep sc) {
+  dual_head_kernel<C, DDIM><<<blocks, 128, 0, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(sa), static_cast<const bf16*>(sb),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(wr), static_cast<const float*>(br),
-      static_cast<float*>(out), P);
+      static_cast<float*>(out), P, static_cast<const float*>(xt),
+      static_cast<const float*>(nz), sc);
   return (int)cudaGetLastError();
+}
+
+template <bool DDIM>
+int dispatch(const void* x, const void* sa, const void* sb, const void* w1, const void* b1,
+             const void* w2, const void* b2, const void* wr, const void* br, void* out,
+             long long P, int C, int blocks, void* stream, const void* xt, const void* nz,
+             DdimStep sc) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 16: return launch<16, DDIM>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, blocks, st, xt, nz, sc);
+    case 32: return launch<32, DDIM>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, blocks, st, xt, nz, sc);
+    case 48: return launch<48, DDIM>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, blocks, st, xt, nz, sc);
+    case 64: return launch<64, DDIM>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, blocks, st, xt, nz, sc);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -127,12 +184,18 @@ ND_EXPORT int nd_dual_head(const void* x, const void* sa, const void* sb, const 
                            const void* b1, const void* w2, const void* b2, const void* wr,
                            const void* br, void* out, long long P, int C, int blocks,
                            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 16: return launch<16>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, blocks, st);
-    case 32: return launch<32>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, blocks, st);
-    case 48: return launch<48>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, blocks, st);
-    case 64: return launch<64>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, blocks, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, C, blocks, stream, nullptr,
+                         nullptr, DdimStep{});
+}
+
+// The DDIM tail: as nd_dual_head, plus xt: (P, 4) fp32 carry; nz: (P, 4)
+// fp32 noise or null (sigma == 0); the seven step scalars; out: (P, 4) fp32
+// next carry.
+ND_EXPORT int nd_ddim_head(const void* x, const void* sa, const void* sb, const void* w1,
+                           const void* b1, const void* w2, const void* b2, const void* wr,
+                           const void* br, const void* xt, const void* nz, void* out,
+                           long long P, int C, int blocks, float ac, float one_m_ac, float rac,
+                           float iracm1, float anext, float c, float sig, void* stream) {
+  return dispatch<true>(x, sa, sb, w1, b1, w2, b2, wr, br, out, P, C, blocks, stream, xt, nz,
+                        DdimStep{ac, one_m_ac, rac, iracm1, anext, c, sig});
 }

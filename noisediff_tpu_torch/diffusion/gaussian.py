@@ -18,10 +18,15 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.kernels.ddim_head import ddim_step_scalars, fused_ddim_head_update
 from ..ops.schedules import DiffusionSchedule, make_schedule
 
 Condition = Optional[Dict[str, torch.Tensor]]
 ModelFn = Callable[[torch.Tensor, torch.Tensor, Condition], torch.Tensor]
+# (x, t, condition) -> (h, shot, shot_res, head weights): the model's trunk
+# and its dual head's parameters, for the fused DDIM tail
+TrunkFn = Callable[[torch.Tensor, torch.Tensor, Condition],
+                   Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]]
 
 OBJECTIVES = ("pred_noise", "pred_x0", "pred_v")
 _BUFFERS = (
@@ -254,7 +259,15 @@ class GaussianDiffusion:
     def ddim_sample(self, shape, condition: Condition = None,
                     sampling_timesteps: Optional[int] = None, eta: Optional[float] = None,
                     generator: Optional[torch.Generator] = None,
-                    init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    init_noise: Optional[torch.Tensor] = None,
+                    trunk_fn: Optional[TrunkFn] = None) -> torch.Tensor:
+        """DDIM. With `trunk_fn` each step runs the model's trunk and then
+        the fused tail (ops/kernels/ddim_head.py): the dual head, the pred_v
+        clip and rederive and the DDIM update in one pass
+        (gaussian.py:380-430 of the JAX package). It implements pred_v
+        only."""
+        if trunk_fn is not None and self.objective != "pred_v":
+            raise ValueError("fused DDIM tail implements the pred_v objective only")
         total = self.num_timesteps
         steps = sampling_timesteps or self.sampling_timesteps or total
         eta = self.ddim_sampling_eta if eta is None else eta
@@ -274,11 +287,18 @@ class GaussianDiffusion:
                 (one - alpha / alpha_next) * (one - alpha_next) / (one - alpha), np.float32(0)))
             c = np.sqrt(np.maximum(one - alpha_next - sigma ** 2, np.float32(0)))
             tb = self._timesteps(t, shape[0])
+            # eta = 0 (the reference default) draws no noise
+            noise = (torch.randn(shape, generator=generator, device=self.device)
+                     if float(eta) != 0.0 else None)
+            if trunk_fn is not None:
+                h, shot, shot_res, head = trunk_fn(x, tb, condition)
+                x = fused_ddim_head_update(h, shot, shot_res, x, noise, *head,
+                                           ddim_step_scalars(alpha, alpha_next, sigma, c))
+                continue
             pred_noise, x_start = self.model_predictions(
                 x, tb, condition, clip_x_start=True, rederive_pred_noise=True)
             x = x_start * _f32(np.sqrt(alpha_next)) + _f32(c) * pred_noise
-            if float(eta) != 0.0:
-                noise = torch.randn(shape, generator=generator, device=self.device)
+            if noise is not None:
                 x = x + _f32(sigma) * noise
         return self.unnormalize(x)
 

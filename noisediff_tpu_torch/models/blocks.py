@@ -11,17 +11,26 @@ JAX package's NHWC layout physically: the kernels see each map as a
 row-major (pixels, C) matrix through `.permute(0, 2, 3, 1)`, a view.
 Parameters stay fp32 and are cast to the activation dtype where they are
 used, as the JAX modules do.
+
+Stride-1 SAME convolutions can take their weight gradient from the
+conv_wgrad kernel instead of cuDNN, under the JAX package's variables
+(`wgrad_kernel_on`). `RMSNorm` and `Attention` (full self-attention through
+the flash_attention kernel) are defined, as in the reference, but
+NoiseDiffNet does not use them.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import fused_attn_tail, fused_groupnorm_film_silu, gn_grad_stats, gn_stats
+from ..ops.kernels import (
+    conv_wgrad, flash_attention, fused_attn_tail, fused_groupnorm_film_silu, gn_grad_stats,
+    gn_stats)
 from ..ops.kernels.attn_tail import gelu
 
 CL = torch.channels_last
@@ -52,15 +61,78 @@ class GELU(nn.Module):
         return gelu(x)
 
 
-class Conv2d(nn.Conv2d):
-    """Conv with SAME padding for odd kernels, run in the input's dtype."""
+def wgrad_kernel_on(x: torch.Tensor, training: bool) -> bool:
+    """Whether a stride-1 SAME conv of input x takes its weight gradient
+    from the conv_wgrad kernel: the port's `_wgrad_pallas_mode`
+    (blocks.py:304-339 of the JAX package), with the same variables.
+    NOISEDIFF_WGRAD=pallas: always; =auto: in training only, where the
+    input's H * W is at least NOISEDIFF_WGRAD_MIN_HW (default 4096); unset
+    or =xla: never (cuDNN's wgrad). Opt-in, as in the JAX package, until
+    measurements decide a default (PERF.md). The caller also applies the
+    channel gate (`wgrad_channels_ok`)."""
+    flag = os.environ.get("NOISEDIFF_WGRAD", "xla")
+    min_hw = int(os.environ.get("NOISEDIFF_WGRAD_MIN_HW", "4096"))
+    if flag == "pallas":
+        return True
+    return flag == "auto" and training and x.shape[-2] * x.shape[-1] >= min_hw
 
-    def __init__(self, cin: int, cout: int, ks: int, stride: int = 1, padding: Optional[int] = None):
-        super().__init__(cin, cout, ks, stride=stride, padding=ks // 2 if padding is None else padding)
+
+def wgrad_channels_ok(ci: int, co: int) -> bool:
+    """Narrow convs stay on cuDNN's wgrad (`_wgrad_channels_ok`)."""
+    return ci >= 32 and co >= 32
+
+
+class _ConvWgrad(torch.autograd.Function):
+    """A stride-1 SAME conv whose forward is F.conv2d and whose backward
+    takes dx from PyTorch's conv input gradient (as the JAX package keeps
+    XLA's dgrad, blocks.py:383-385), dW from the conv_wgrad kernel in fp32
+    and db as a sum (blocks._conv_same_pallas_wgrad). x is channels-last
+    NCHW; weight and bias are the fp32 parameters, cast to x's dtype for
+    the forward, and get fp32 gradients, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding: int):
+        w = weight.to(x.dtype)
+        ctx.padding = padding
+        ctx.has_bias = bias is not None
+        ctx.save_for_backward(x, w)
+        return F.conv2d(x, w, None if bias is None else bias.to(x.dtype), 1, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        kh, kw = w.shape[2:]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], [ctx.padding] * 2, [1, 1], False, [0, 0], 1,
+                [True, False, False])[0]
+        dw = conv_wgrad(to_nhwc(g), to_nhwc(x), kh, kw).permute(3, 2, 0, 1).contiguous()
+        db = g.float().sum((0, 2, 3)) if ctx.has_bias else None
+        return dx, dw, db, None
+
+
+class Conv2d(nn.Conv2d):
+    """Conv with SAME padding for odd kernels, run in the input's dtype.
+    A stride-1 1x1 or 3x3 conv takes the conv_wgrad route where
+    `wgrad_kernel_on` and `wgrad_channels_ok` allow it."""
+
+    def __init__(self, cin: int, cout: int, ks: int, stride: int = 1,
+                 padding: Optional[int] = None, bias: bool = True):
+        super().__init__(cin, cout, ks, stride=stride,
+                         padding=ks // 2 if padding is None else padding, bias=bias)
+
+    def wgrad_route(self, x: torch.Tensor) -> bool:
+        ks = self.kernel_size[0]
+        return (self.stride == (1, 1) and ks in (1, 3) and self.padding == (ks // 2, ks // 2)
+                and wgrad_channels_ok(self.in_channels, self.out_channels)
+                and wgrad_kernel_on(x, self.training))
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
-                        self.padding)
+        if self.wgrad_route(x):
+            return _ConvWgrad.apply(x, self.weight, self.bias, self.padding[0])
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
 
 
 class Linear(nn.Linear):
@@ -381,6 +453,46 @@ class AttnBlock(nn.Module):
             self.norm2.eps,
         )
         return to_nchw(out)
+
+
+class RMSNorm(nn.Module):
+    """Channelwise RMS norm: F.normalize(x, dim=C) * g * sqrt(C) (:84-90),
+    F.normalize's eps 1e-12 (blocks.RMSNorm of the JAX package). g has the
+    reference's (1, C, 1, 1) shape. The norm is fp32; the division and
+    the scale run in x's dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(1, dim, 1, 1))
+
+    def forward(self, x):
+        c = x.shape[1]
+        norm = x.float().norm(dim=1, keepdim=True).clamp_min(1e-12)
+        return x / norm.to(x.dtype) * self.g.to(x.dtype) * (c ** 0.5)
+
+
+class Attention(nn.Module):
+    """Full self-attention over the pixels (:237-266): RMSNorm, a 1x1 qkv
+    conv, softmax attention per head, a 1x1 output conv (blocks.Attention of
+    the JAX package). The attention is the flash_attention kernel on the
+    card at every token count; the channels of qkv are (3, heads, dim_head)
+    as in the reference."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        hidden = heads * dim_head
+        self.norm = RMSNorm(dim)
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = Conv2d(hidden, dim, 1)
+
+    def forward(self, x):
+        b, _, h, w = x.shape
+        qkv = to_nhwc(self.to_qkv(self.norm(x))).view(b, h * w, 3, self.heads, self.dim_head)
+        q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))  # (B, H, N, D)
+        out = flash_attention(q, k, v).transpose(1, 2).reshape(b, h, w, -1)
+        return self.to_out(to_nchw(out))
 
 
 class Downsample(nn.Sequential):

@@ -12,12 +12,18 @@ space-to-depth Downsample (a 3x3 conv at the last stage); two mid blocks;
 the mirrored up path with skip concats; positional FiLM blocks at entry and
 exit; a pixelwise shot-noise branch; out = shot_noise + read_noise.
 
+`trunk` returns the three maps the heads read and `head_weights` the head
+parameters: the counterpart of the JAX model's `trunk_only` clone
+(noisediff_net.py:71, :310-318), which feeds the DDIM sampler's fused tail
+(ops/kernels/ddim_head.py). `forward` is `trunk` and the dual head, so both
+read one parameter tree.
+
 At dim=48 the model has 21,268,088 parameters under the reference's 416
 state_dict keys.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -105,12 +111,13 @@ class NoiseDiffNet(nn.Module):
         self.shot_time = ResnetBlock(dim, dim, time_dim, groups=2)
         self.shot_mlp3 = Mlp(dim, dim, channels)
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor,
-                condition: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """x: (B, H, W, 4) noisy sample, NHWC as in the JAX package; time:
-        (B,) int timesteps; condition: 'clean_img' (B, H, W, 4), 'position'
-        (B, H, W, 2), 'iso_ratio_idx' (B,). Returns (B, H, W, 4) in the
-        model dtype."""
+    def trunk(self, x: torch.Tensor, time: torch.Tensor,
+              condition: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor,
+                                                            torch.Tensor]:
+        """The pre-head maps (h, shot, shot_res), each (B, H, W, dim) NHWC
+        in the model dtype. x: (B, H, W, 4) noisy sample, NHWC as in the JAX
+        package; time: (B,) int timesteps; condition: 'clean_img' (B, H, W,
+        4), 'position' (B, H, W, 2), 'iso_ratio_idx' (B,)."""
         f = self.downsample_factor
         if x.shape[1] % f or x.shape[2] % f:
             raise ValueError(f"input spatial dims {tuple(x.shape[1:3])} must be divisible by {f}")
@@ -155,13 +162,19 @@ class NoiseDiffNet(nn.Module):
             h = up(h)
         h = self.pos_block2(h, pos_emb)
         h = self.final_res_block((h, r), t)
+        return to_nhwc(h), to_nhwc(shot), to_nhwc(shot_res)
 
+    def head_weights(self) -> Tuple[torch.Tensor, ...]:
+        """(w1, b1, w2, b2, wr, br): shot_mlp3's fc1 and fc2 and final_conv
+        in PyTorch (out, in) layout, the dual head's parameters."""
         fc1, fc2 = self.shot_mlp3.fc1, self.shot_mlp3.fc2
-        out = fused_dual_head(
-            to_nhwc(h), to_nhwc(shot), to_nhwc(shot_res),
-            fc1.weight[:, :, 0, 0], fc1.bias, fc2.weight[:, :, 0, 0], fc2.bias,
-            self.final_conv.weight[:, :, 0, 0], self.final_conv.bias,
-        )
+        return (fc1.weight[:, :, 0, 0], fc1.bias, fc2.weight[:, :, 0, 0], fc2.bias,
+                self.final_conv.weight[:, :, 0, 0], self.final_conv.bias)
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor,
+                condition: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """`trunk`'s arguments; returns (B, H, W, 4) in the model dtype."""
+        out = fused_dual_head(*self.trunk(x, time, condition), *self.head_weights())
         # the head sums in fp32; the model's output dtype is its compute
         # dtype, as in the JAX model (noisediff_net.py:350-354)
-        return out.to(dt)
+        return out.to(self.dtype or x.dtype)

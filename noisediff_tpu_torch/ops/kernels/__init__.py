@@ -5,13 +5,16 @@ does so as a torch.autograd.Function; none returns a tensor cut off from
 autograd."""
 from .attn_tail import (
     fused_attn_tail, fused_attn_tail_bwd, reference_attn_tail, reference_attn_tail_bwd)
+from .conv_wgrad import conv_wgrad, reference_conv_wgrad
+from .ddim_head import ddim_step_scalars, fused_ddim_head_update, reference_ddim_head_update
 from .dual_head import fused_dual_head, reference_dual_head
+from .flash_attention import flash_attention, reference_flash_attention
 from .gn_stats import gn_grad_stats, gn_stats, reference_gn_grad_stats, reference_gn_stats
 from .groupnorm_silu import fused_groupnorm_film_silu, reference_groupnorm_film_silu
 
 # every kernel wrapper of the port (each carries `.launches`)
 KERNELS = (fused_attn_tail, fused_attn_tail_bwd, fused_groupnorm_film_silu, fused_dual_head,
-           gn_stats, gn_grad_stats)
+           fused_ddim_head_update, gn_stats, gn_grad_stats, conv_wgrad, flash_attention)
 
 
 def reset_launch_counts() -> None:
@@ -26,8 +29,12 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "conv_wgrad",
+    "ddim_step_scalars",
+    "flash_attention",
     "fused_attn_tail",
     "fused_attn_tail_bwd",
+    "fused_ddim_head_update",
     "fused_dual_head",
     "fused_groupnorm_film_silu",
     "gn_grad_stats",
@@ -35,7 +42,10 @@ __all__ = [
     "launch_counts",
     "reference_attn_tail",
     "reference_attn_tail_bwd",
+    "reference_conv_wgrad",
+    "reference_ddim_head_update",
     "reference_dual_head",
+    "reference_flash_attention",
     "reference_gn_grad_stats",
     "reference_gn_stats",
     "reference_groupnorm_film_silu",

@@ -27,9 +27,12 @@ import torch
 from . import _build
 from .attn_tail import _linear, gelu
 
+# the library also holds the DDIM tail's entry point (ddim_head.py)
 _SIGNATURES = {
     "nd_dual_head": [ctypes.c_void_p] * 10
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "nd_ddim_head": [ctypes.c_void_p] * 12
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 7 + [ctypes.c_void_p],
 }
 _KERNEL_WIDTHS = (16, 32, 48, 64)
 _BLOCKS_PER_SM = 8
@@ -44,19 +47,22 @@ def reference_dual_head(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
     return _linear(h, w2, b2) + _linear(x, wr, br)
 
 
-def _launch(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
+def head_args(x, shot_a, shot_b, w1, b1, w2, b2, wr, br, what: str):
+    """Check the kernel's inputs and return the head parameters as the
+    kernel takes them (the weights rounded to bf16 and held as fp32) with
+    the pixel count and the grid size. Shared with the DDIM tail."""
     if x.device.type != "cuda":
-        raise ValueError(f"dual_head kernel needs a CUDA tensor, got {x.device}")
+        raise ValueError(f"{what} kernel needs a CUDA tensor, got {x.device}")
     for t in (x, shot_a, shot_b):
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"dual_head kernel is built for bfloat16, got {t.dtype}")
+            raise TypeError(f"{what} kernel is built for bfloat16, got {t.dtype}")
         if t.shape != x.shape or t.dim() != 4 or not t.is_contiguous():
-            raise ValueError("dual_head kernel takes three contiguous (B, H, W, C) tensors")
+            raise ValueError(f"{what} kernel takes three contiguous (B, H, W, C) tensors")
     b, h, w, c = x.shape
     if c not in _KERNEL_WIDTHS:
-        raise ValueError(f"dual_head kernel is built for C in {_KERNEL_WIDTHS}, got {c}")
+        raise ValueError(f"{what} kernel is built for C in {_KERNEL_WIDTHS}, got {c}")
     if tuple(w1.shape) != (c, c) or tuple(w2.shape) != (4, c) or tuple(wr.shape) != (4, c):
-        raise ValueError("dual_head kernel: head shapes must be (C, C), (4, C), (4, C)")
+        raise ValueError(f"{what} kernel: head shapes must be (C, C), (4, C), (4, C)")
     dev = x.device
 
     def w_rounded(t):  # the products take bf16 weights, held as fp32
@@ -65,14 +71,20 @@ def _launch(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
     def f32(t):
         return _build.on_device(t, dev, torch.float32)
 
-    args = (w_rounded(w1), f32(b1), w_rounded(w2), f32(b2), w_rounded(wr), f32(br))
+    params = (w_rounded(w1), f32(b1), w_rounded(w2), f32(b2), w_rounded(wr), f32(br))
     p = b * h * w
-    out = torch.empty((b, h, w, 4), device=dev, dtype=torch.float32)
+    blocks = max(1, min(-(-p // 128), _BLOCKS_PER_SM * _build.sm_count(dev)))
+    return params, p, blocks
+
+
+def _launch(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
+    params, p, blocks = head_args(x, shot_a, shot_b, w1, b1, w2, b2, wr, br, "dual_head")
+    dev = x.device
+    out = torch.empty(x.shape[:3] + (4,), device=dev, dtype=torch.float32)
     lib = _build.library("dual_head", _SIGNATURES)
     code = lib.nd_dual_head(
         _build.ptr(x), _build.ptr(shot_a), _build.ptr(shot_b),
-        *(_build.ptr(a) for a in args), _build.ptr(out),
-        p, c, max(1, min(-(-p // 128), _BLOCKS_PER_SM * _build.sm_count(dev))),
+        *(_build.ptr(a) for a in params), _build.ptr(out), p, x.shape[-1], blocks,
         _build.stream_ptr(dev),
     )
     _build.check(lib, code, "dual_head")

@@ -318,20 +318,31 @@ class Trainer:
     def sampler(self, batch_size: int) -> Callable:
         """The sampler --sampler selects (trainer_diffusion.py:389-441):
         dpm -> DPM-Solver++(2M) on --dpm_spacing; ddim, or auto with fewer
-        sampling steps than T -> DDIM; otherwise ancestral DDPM."""
+        sampling steps than T -> DDIM; otherwise ancestral DDPM.
+
+        DDIM takes the fused tail (the ddim_head kernel on the card, its
+        plain version on the CPU) whenever the model has a trunk and the
+        objective is pred_v. The JAX package gates it behind
+        NOISEDIFF_FUSED_TAIL; the port turns on by default every inference
+        kernel that computes the same function as the unfused path."""
         gd = self.diffusion
         shape = (batch_size, self.args.crop_size, self.args.crop_size, 4)
         kind = getattr(self.args, "sampler", "auto")
         spacing = getattr(self.args, "dpm_spacing", "lambda")
         if kind == "dpm":  # resolved (and reported) once per run, not per batch
             dpm_steps = gd.sampling_timesteps or default_dpm_steps(spacing, warn=True)
+        model = self.model
+        trunk_fn = None
+        if hasattr(model, "trunk") and gd.objective == "pred_v":
+            def trunk_fn(x, t, condition):
+                return (*model.trunk(x, t, condition), model.head_weights())
 
         def fn(condition, generator):
             if kind == "dpm":
                 return gd.dpm_solver_sample(shape, condition, sampling_timesteps=dpm_steps,
                                             step_spacing=spacing, generator=generator)
             if kind == "ddim" or (kind == "auto" and gd.is_ddim_sampling):
-                return gd.ddim_sample(shape, condition, generator=generator)
+                return gd.ddim_sample(shape, condition, generator=generator, trunk_fn=trunk_fn)
             return gd.p_sample_loop(shape, condition, generator=generator)
 
         return fn

@@ -11,6 +11,7 @@ noisediff_tpu/train/torch_import.py, with the layout transforms inverted:
     conv kernels    HWIO -> OIHW     (transpose 3, 2, 0, 1)
     dense kernels   (in, out) -> (out, in)
     norm scale      -> weight;  embedding -> weight
+    RMSNorm g       (C,) -> (1, C, 1, 1)
 
 Orbax snapshot directories are not read yet (ROADMAP.md, Queue 1).
 
@@ -37,7 +38,8 @@ _NAME_RULES = {
 }
 _STAGE_RE = re.compile(r"^(downs|ups)_(\d+)_(block1|block2|attn|down|up)$")
 _STAGE_SLOT = {"block1": "0", "block2": "1", "attn": "2", "down": "3", "up": "3"}
-_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight"}
+_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight",
+         "g": "g"}
 _KEYSTR_RE = re.compile(r"\['([^']*)'\]")
 
 
@@ -65,10 +67,11 @@ def torch_key(path: Tuple[str, ...]) -> str:
         elif seg == "ff":  # FeedForward: Sequential(Sequential(Linear, GELU), Dropout, Linear)
             out.append("ff.net.0.0" if mods[i + 1] == "proj_in" else "ff.net.2")
             i += 1
-        elif seg == "to_out":  # Sequential(Linear, Dropout)
-            out.append("to_out.0")
-        elif seg in ("conv", "dense", "norm") and i == len(mods) - 1 and i > 0:
-            pass  # the flax primitive inside a wrapper module collapses
+        elif seg == "to_out":
+            # CrossAttention's Sequential(Linear, Dropout); Attention's is a conv
+            out.append("to_out" if mods[i + 1:i + 2] == ["conv"] else "to_out.0")
+        elif seg in ("conv", "dense", "norm") and i == len(mods) - 1 and i > 0 and leaf != "g":
+            pass  # the flax primitive inside a wrapper module collapses (RMSNorm's g is its own)
         elif seg in _NAME_RULES:
             if _NAME_RULES[seg] is not None:
                 out.append(_NAME_RULES[seg])
@@ -79,6 +82,8 @@ def torch_key(path: Tuple[str, ...]) -> str:
 
 
 def _to_torch_layout(value: np.ndarray, leaf: str) -> np.ndarray:
+    if leaf == "g" and value.ndim == 1:
+        return value.reshape(1, -1, 1, 1)  # RMSNorm
     if leaf == "kernel" and value.ndim == 4:
         return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if leaf == "kernel" and value.ndim == 2:

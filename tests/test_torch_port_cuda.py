@@ -24,8 +24,10 @@ import torch
 
 from noisediff_tpu_torch.cli.common import set_precision_flags
 from noisediff_tpu_torch.ops.kernels import (
-    fused_attn_tail, fused_attn_tail_bwd, fused_dual_head, fused_groupnorm_film_silu,
-    gn_grad_stats, gn_stats, reference_attn_tail, reference_attn_tail_bwd, reference_dual_head,
+    conv_wgrad, ddim_step_scalars, flash_attention, fused_attn_tail, fused_attn_tail_bwd,
+    fused_ddim_head_update, fused_dual_head, fused_groupnorm_film_silu, gn_grad_stats, gn_stats,
+    reference_attn_tail, reference_attn_tail_bwd, reference_conv_wgrad,
+    reference_ddim_head_update, reference_dual_head, reference_flash_attention,
     reference_gn_grad_stats, reference_gn_stats, reference_groupnorm_film_silu)
 
 pytestmark = pytest.mark.cuda
@@ -262,3 +264,141 @@ def test_model_forward_card_vs_cpu(dev):
         want = cpu(x, t, cond).float()
         got = card(x.to(dev), t.to(dev), {k: v.to(dev) for k, v in cond.items()}).float().cpu()
     assert float((got - want).norm() / want.norm()) < 5e-2
+
+
+@pytest.mark.parametrize("c", [16, 48])
+@pytest.mark.parametrize("sigma", [0.0, 0.3])
+def test_ddim_head_kernel(dev, c, sigma):
+    """The DDIM tail: the dual head (the kernel's products, 1e-2 as
+    dual_head) and an fp32 update whose coefficients are at most ~10, so the
+    carry agrees within 1e-1 of the head's tolerance."""
+    x, sa, sb = (_randn(dev, 2, 16, 16, c, dtype=torch.bfloat16, seed=s) for s in range(3))
+    p = (_randn(dev, c, c, scale=c ** -0.5), 0.1 * _randn(dev, c),
+         _randn(dev, 4, c, scale=c ** -0.5, seed=1), 0.1 * _randn(dev, 4),
+         _randn(dev, 4, c, scale=c ** -0.5, seed=2), 0.1 * _randn(dev, 4, seed=3))
+    xt = _randn(dev, 2, 16, 16, 4, seed=4)
+    noise = _randn(dev, 2, 16, 16, 4, seed=5) if sigma else None
+    scal = ddim_step_scalars(0.3, 0.45, sigma, (1 - 0.45 - sigma ** 2) ** 0.5)
+    before = fused_ddim_head_update.launches
+    got = fused_ddim_head_update(x, sa, sb, xt, noise, *p, scal)
+    assert fused_ddim_head_update.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == xt.shape
+    _close(got, reference_ddim_head_update(x, sa, sb, xt, noise, *p, scal), 2e-2)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k", [
+    (2, 32, 32, 48, 48, 3), (2, 16, 16, 96, 48, 3), (1, 9, 13, 48, 96, 1), (2, 8, 8, 32, 64, 3),
+    (1, 5, 70, 16, 32, 3), (2, 16, 16, 144, 96, 1)])
+def test_conv_wgrad_kernel(dev, b, h, w, ci, co, k):
+    """fp32 sums over B*H*W bf16 products in another order: within 1e-4 of
+    the largest sum, and the same bits from two calls."""
+    x = _randn(dev, b, h, w, ci, dtype=torch.bfloat16)
+    g = _randn(dev, b, h, w, co, dtype=torch.bfloat16, seed=1)
+    before = conv_wgrad.launches
+    got = conv_wgrad(g, x, k, k)
+    assert conv_wgrad.launches == before + 1
+    want = reference_conv_wgrad(g, x, k, k)
+    assert got.shape == (k, k, ci, co) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got, conv_wgrad(g, x, k, k))
+
+
+@pytest.mark.parametrize("kh,kw", [(1, 3), (3, 1)])
+def test_conv_wgrad_kernel_rectangular(dev, kh, kw):
+    x = _randn(dev, 2, 12, 20, 48, dtype=torch.bfloat16)
+    g = _randn(dev, 2, 12, 20, 48, dtype=torch.bfloat16, seed=1)
+    got, want = conv_wgrad(g, x, kh, kw), reference_conv_wgrad(g, x, kh, kw)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_conv_wgrad_route_on_card(dev, monkeypatch):
+    """A 3x3 conv under NOISEDIFF_WGRAD=pallas on the card: the same output
+    and dx as cuDNN's backward, and dW within bf16 rounding of it (cuDNN
+    rounds its weight gradient to bf16; the kernel keeps fp32)."""
+    from noisediff_tpu_torch.models.blocks import Conv2d
+
+    torch.manual_seed(0)
+    conv = Conv2d(48, 96, 3).to(dev)
+    x0 = _randn(dev, 2, 48, 32, 32, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    grads = {}
+    for flag in ("xla", "pallas"):
+        monkeypatch.setenv("NOISEDIFF_WGRAD", flag)
+        conv.zero_grad()
+        x = x0.clone().requires_grad_(True)
+        n = conv_wgrad.launches
+        y = conv(x)
+        y.float().square().sum().backward()
+        assert conv_wgrad.launches == n + (flag == "pallas")
+        grads[flag] = (y.detach(), x.grad, conv.weight.grad.clone(), conv.bias.grad.clone())
+    assert torch.equal(grads["xla"][0], grads["pallas"][0])
+    assert torch.equal(grads["xla"][1], grads["pallas"][1])
+    for a, b in zip(grads["xla"][2:], grads["pallas"][2:]):
+        assert _rel(b, a) < 1e-2
+
+
+@pytest.mark.parametrize("n,d", [(4096, 32), (1000, 32), (256, 64), (1, 32), (77, 64)])
+def test_flash_attention_kernel(dev, n, d):
+    """bf16 output against the plain version: the probabilities round to
+    bf16 at another point (unnormalised in the kernel), so within 2e-2."""
+    q, k, v = (_randn(dev, 2, 2, n, d, dtype=torch.bfloat16, seed=s) for s in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    _close(got, reference_flash_attention(q, k, v), 2e-2)
+
+
+def test_flash_attention_autograd_and_module(dev):
+    """The backward (autograd of the plain version) reaches q, k and v; the
+    Attention module on the card agrees with the CPU's."""
+    from noisediff_tpu_torch.models.blocks import Attention
+
+    q, k, v = (_randn(dev, 1, 2, 300, 32, dtype=torch.bfloat16, seed=s) for s in range(3))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention(*leaves).float().square().sum().backward()
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reference_flash_attention(*ref).float().square().sum().backward()
+    for a, r in zip(leaves, ref):
+        assert a.grad is not None and _rel(a.grad, r.grad) < 2e-2
+
+    torch.manual_seed(0)
+    cpu = Attention(96)
+    card = Attention(96)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev)
+    x = torch.randn(2, 96, 32, 32).contiguous(memory_format=torch.channels_last)
+    n = flash_attention.launches
+    got = card(x.to(dev, torch.bfloat16)).float().cpu()
+    assert flash_attention.launches == n + 1
+    want = cpu(x.bfloat16()).float()
+    assert _rel(got, want) < 2e-2
+
+
+def test_fused_ddim_matches_unfused_on_card(dev):
+    """A small bf16 NoiseDiffNet: the fused DDIM tail (the kernel) against
+    the unfused sampler (dual_head kernel, then PyTorch's update) from the
+    same noise. The unfused path rounds the model output to bf16; the fused
+    one keeps it fp32, so they agree to bf16 rounding through the steps."""
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+
+    torch.manual_seed(0)
+    model = NoiseDiffNet(dim=16, dtype=torch.bfloat16).to(dev, memory_format=torch.channels_last)
+    model.eval()
+    gd = GaussianDiffusion.create(model, image_size=32, timesteps=1000, beta_schedule="sigmoid2",
+                                  device=dev)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 4)).astype(np.float32)).to(dev)
+    cond = {"clean_img": torch.from_numpy(rng.uniform(0, .3, (2, 32, 32, 4)).astype(np.float32)),
+            "position": torch.from_numpy(rng.uniform(0, 1, (2, 32, 32, 2)).astype(np.float32)),
+            "iso_ratio_idx": torch.tensor([24, 3])}
+    cond = {k: v.to(dev) for k, v in cond.items()}
+
+    def trunk_fn(xx, t, c):
+        return (*model.trunk(xx, t, c), model.head_weights())
+
+    n = fused_ddim_head_update.launches
+    fused = gd.ddim_sample(x.shape, cond, sampling_timesteps=4, init_noise=x, trunk_fn=trunk_fn)
+    assert fused_ddim_head_update.launches == n + 4
+    unfused = gd.ddim_sample(x.shape, cond, sampling_timesteps=4, init_noise=x)
+    assert bool(torch.isfinite(fused).all()) and _rel(fused, unfused) < 5e-2

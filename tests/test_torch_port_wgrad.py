@@ -1,0 +1,196 @@
+"""The port's conv weight-gradient route against the JAX package, on the CPU.
+
+`conv_wgrad` runs its plain version (the tap sum) for CPU tensors; it is
+held against the JAX Pallas kernel in interpret mode
+(ops/pallas/conv_wgrad.conv_wgrad). The route through models/blocks.Conv2d
+is held against the default conv backward, and a whole NoiseDiffNet
+training step (dim 16, 16^2, batch 2) with NOISEDIFF_WGRAD=pallas against
+JAX with NOISEDIFF_WGRAD=pallas-interpret. The gate's decisions are held
+against the JAX `_wgrad_pallas_mode`, as tests/test_conv_wgrad.py:174-198
+drives it. fp32: rtol 5e-4 (PARITY.md:152); gradients of the whole step
+within 2e-3 relative L2, as tests/test_torch_port_train_model.py holds
+them.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from noisediff_tpu.diffusion.gaussian import GaussianDiffusion as JaxDiffusion
+from noisediff_tpu.models import NoiseDiffNet as JaxNet
+from noisediff_tpu.models import blocks as jax_blocks
+from noisediff_tpu.ops.pallas.conv_wgrad import conv_wgrad as jax_conv_wgrad
+from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from noisediff_tpu_torch.models import NoiseDiffNet, is_unread_parameter
+from noisediff_tpu_torch.models import blocks
+from noisediff_tpu_torch.ops.kernels import conv_wgrad, reference_conv_wgrad
+from noisediff_tpu_torch.weights import jax_params_to_state_dict
+
+from torch_port_util import RTOL, load_port, random_params
+
+B, S, DIM = 2, 16, 16
+T = 1000
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tier-1 run puts several test workers on one CPU."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-12))
+
+
+@pytest.mark.parametrize("kh,kw", [(1, 1), (3, 3), (1, 3), (3, 1)])
+def test_plain_wgrad_matches_jax_kernel(kh, kw):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 8, 12, 16)).astype(np.float32)
+    g = rng.standard_normal((2, 8, 12, 24)).astype(np.float32)
+    want = np.asarray(jax_conv_wgrad(jnp.asarray(g), jnp.asarray(x), kh, kw, interpret=True))
+    got = conv_wgrad(torch.from_numpy(g), torch.from_numpy(x), kh, kw)
+    assert got.dtype == torch.float32 and got.shape == (kh, kw, 16, 24)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.parametrize("ks,cin,cout,routed", [(3, 32, 48, True), (1, 64, 32, True),
+                                                (3, 16, 48, False), (7, 32, 32, False)])
+def test_conv2d_route_matches_default(monkeypatch, ks, cin, cout, routed):
+    """Conv2d under NOISEDIFF_WGRAD=pallas: the same output and gradients
+    as the default backward, and the route only where the gate allows."""
+    torch.manual_seed(0)
+    conv = blocks.Conv2d(cin, cout, ks)
+    x0 = torch.randn(2, cin, 9, 11).contiguous(memory_format=torch.channels_last)
+    calls = []
+
+    def counting(g, x, kh, kw):
+        calls.append((kh, kw))
+        return conv_wgrad(g, x, kh, kw)
+
+    monkeypatch.setattr(blocks, "conv_wgrad", counting)
+    outs = {}
+    for flag in ("xla", "pallas"):
+        monkeypatch.setenv("NOISEDIFF_WGRAD", flag)
+        conv.zero_grad()
+        x = x0.clone().requires_grad_(True)
+        y = conv(x)
+        (y.sin() * y).sum().backward()
+        outs[flag] = (y.detach(), x.grad, conv.weight.grad.clone(), conv.bias.grad.clone())
+    assert calls == ([(ks, ks)] if routed else [])
+    for a, b in zip(outs["xla"], outs["pallas"]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=RTOL, atol=1e-4)
+
+
+def test_gate_decisions_match_jax(monkeypatch):
+    """wgrad_kernel_on against _wgrad_pallas_mode on a TPU backend (where the
+    JAX gate can turn on), for every flag, area floor and train context."""
+    monkeypatch.setattr(jax_blocks.jax, "default_backend", lambda: "tpu")
+    shapes = [(2, 128, 64, 32), (2, 16, 16, 32), (1, 64, 64, 48)]
+    for flag in (None, "xla", "pallas", "auto"):
+        for min_hw in (None, "131072", "256"):
+            for key, val in (("NOISEDIFF_WGRAD", flag), ("NOISEDIFF_WGRAD_MIN_HW", min_hw)):
+                if val is None:
+                    monkeypatch.delenv(key, raising=False)
+                else:
+                    monkeypatch.setenv(key, val)
+            for shape in shapes:
+                x = jnp.zeros(shape)
+                for training in (False, True):
+                    if training:
+                        with jax_blocks.gn_train_trace():
+                            want = jax_blocks._wgrad_pallas_mode(x) != ""
+                    else:
+                        want = jax_blocks._wgrad_pallas_mode(x) != ""
+                    xt = torch.zeros(shape).permute(0, 3, 1, 2)
+                    assert blocks.wgrad_kernel_on(xt, training) == want, (flag, min_hw, shape,
+                                                                           training)
+    for ci, co in [(32, 32), (16, 48), (48, 8), (384, 576)]:
+        assert blocks.wgrad_channels_ok(ci, co) == jax_blocks._wgrad_channels_ok(ci, co)
+
+
+def _batch(seed=1):
+    rng = np.random.default_rng(seed)
+    img = (0.05 * rng.standard_normal((B, S, S, 4))).astype(np.float32)
+    cond = {
+        "clean_img": rng.uniform(0, 0.3, (B, S, S, 4)).astype(np.float32),
+        "position": rng.uniform(0, 1, (B, S, S, 2)).astype(np.float32),
+        "iso_ratio_idx": np.array([24, 3], np.int32),
+    }
+    return img, cond
+
+
+def test_training_step_gradients_match_jax(monkeypatch):
+    jnet = JaxNet(dim=DIM)
+    img, cond = _batch()
+    jcond = {k: jnp.asarray(v) for k, v in cond.items()}
+    params = random_params(jnet, jnp.asarray(img), jnp.zeros((B,), jnp.int32), jcond, seed=3)
+    jd = JaxDiffusion.create(lambda p, x, t, c: jnet.apply({"params": p}, x, t, c),
+                             image_size=S, timesteps=T, beta_schedule="sigmoid2")
+    key = jax.random.PRNGKey(5)
+
+    def loss_fn(p):
+        with jax_blocks.gn_train_trace():
+            return jd.loss(p, key, jnp.asarray(img), jcond)
+
+    monkeypatch.setenv("NOISEDIFF_WGRAD", "pallas-interpret")
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    t = np.array(jax.random.randint(jax.random.fold_in(key, 0), (B,), 0, T))
+    noise = np.array(jax.random.normal(jax.random.fold_in(key, 1), img.shape, jnp.float32))
+
+    monkeypatch.setenv("NOISEDIFF_WGRAD", "pallas")
+    calls = []
+
+    def counting(g, x, kh, kw):
+        calls.append((kh, kw))
+        return conv_wgrad(g, x, kh, kw)
+
+    monkeypatch.setattr(blocks, "conv_wgrad", counting)
+    port = load_port(NoiseDiffNet(dim=DIM), params).train()
+    # the convs whose forward ran with the route on: every stride-1 1x1 /
+    # 3x3 conv with Ci, Co >= 32 (at dim 16 those of the 32-, 64- and
+    # 128-wide stages)
+    routed = []
+    for m in port.modules():
+        if isinstance(m, blocks.Conv2d):
+            m.register_forward_pre_hook(
+                lambda mod, args: routed.append(mod) if mod.wgrad_route(args[0]) else None)
+    pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2")
+    loss = pd.loss(torch.from_numpy(img), {k: torch.from_numpy(v) for k, v in cond.items()},
+                   t=torch.from_numpy(t).long(), noise=torch.from_numpy(noise))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=RTOL)
+    assert len(calls) == len(routed) > 10
+    assert all(m.in_channels >= 32 and m.out_channels >= 32 for m in routed)
+
+    want = jax_params_to_state_dict(jax.tree.map(np.asarray, want_grads))
+    bad = {}
+    for name, p in port.named_parameters():
+        if is_unread_parameter(name):
+            assert p.grad is None, name
+            continue
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        r = _rel_l2(p.grad.numpy(), want[name].numpy())
+        if r > 2e-3:
+            bad[name] = r
+    assert not bad, bad
+
+
+def test_reference_matches_direct_sum():
+    """The plain version against the definition, summed pixel by pixel."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((1, 3, 4, 2)).astype(np.float32)
+    g = rng.standard_normal((1, 3, 4, 3)).astype(np.float32)
+    want = np.zeros((3, 3, 2, 3), np.float32)
+    for i in range(3):
+        for j in range(3):
+            for h in range(3):
+                for w in range(4):
+                    hh, ww = h + i - 1, w + j - 1
+                    if 0 <= hh < 3 and 0 <= ww < 4:
+                        want[i, j] += np.outer(x[0, hh, ww], g[0, h, w])
+    got = reference_conv_wgrad(torch.from_numpy(g), torch.from_numpy(x), 3, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
