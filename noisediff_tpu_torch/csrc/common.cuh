@@ -130,11 +130,11 @@ __global__ void channel_partial_sums(const bf16* __restrict__ a, const bf16* __r
 // out[i] = sum_k part[k][i] for k = 0 .. S-1 in that order: the fixed-order
 // second pass of the split-K products (attn_tail.cu's weight gradients,
 // conv_wgrad.cu). part (S, n), out (n,), fp32.
-template <typename T>
-__global__ void sum_splits(const T* __restrict__ part, T* __restrict__ out, int S, long long n) {
+__global__ void sum_splits(const float* __restrict__ part, float* __restrict__ out, int S,
+                           long long n) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    T s = 0;
+    float s = 0.0f;
     for (int k = 0; k < S; ++k) s += part[(size_t)k * n + i];
     out[i] = s;
   }

@@ -123,6 +123,10 @@ class Conv2d(nn.Conv2d):
                          padding=ks // 2 if padding is None else padding, bias=bias)
 
     def wgrad_route(self, x: torch.Tensor) -> bool:
+        """Only where a weight gradient will be taken: generation reads no
+        environment variable per conv."""
+        if not (torch.is_grad_enabled() and self.weight.requires_grad):
+            return False
         ks = self.kernel_size[0]
         return (self.stride == (1, 1) and ks in (1, 3) and self.padding == (ks // 2, ks // 2)
                 and wgrad_channels_ok(self.in_channels, self.out_channels)

@@ -33,15 +33,15 @@ import torch
 from . import _build
 from .dual_head import _SIGNATURES, head_args, reference_dual_head
 
-# slots of the step-scalar vector (padded to 8, as in the JAX package)
-_S_AC, _S_1MAC, _S_RAC, _S_IRACM1, _S_ANEXT, _S_C, _S_SIG = range(7)
-N_SCALARS = 8
+# the step scalars, as the kernel takes them by value (the JAX package pads
+# its vector with an eighth zero for the TPU's layout; the port does not)
+N_SCALARS = 7
 
 
 def ddim_step_scalars(alpha, alpha_next, sigma, c) -> np.ndarray:
-    """The per-step DDIM scalars as a (..., 8) fp32 array: sqrt(a),
-    sqrt(1 - a), sqrt(1 / a), 1 / sqrt(1 / a - 1), sqrt(a_next), c, sigma,
-    0. alpha = alphas_cumprod[t]; alpha_next folds the terminal step (1.0);
+    """The per-step DDIM scalars as a (..., 7) fp32 array: sqrt(a),
+    sqrt(1 - a), sqrt(1 / a), 1 / sqrt(1 / a - 1), sqrt(a_next), c, sigma.
+    alpha = alphas_cumprod[t]; alpha_next folds the terminal step (1.0);
     sigma and c as in GaussianDiffusion.ddim_sample. Scalars or vectors."""
     one = np.float32(1.0)
     alpha = np.asarray(alpha, np.float32)
@@ -53,7 +53,6 @@ def ddim_step_scalars(alpha, alpha_next, sigma, c) -> np.ndarray:
         np.sqrt(np.asarray(alpha_next, np.float32)),
         np.broadcast_to(np.asarray(c, np.float32), alpha.shape),
         np.broadcast_to(np.asarray(sigma, np.float32), alpha.shape),
-        np.zeros_like(alpha),
     ], axis=-1).astype(np.float32)
 
 
@@ -61,7 +60,7 @@ def _scalars(scal: Sequence[float]):
     s = np.asarray(scal, np.float32)
     if s.shape != (N_SCALARS,):
         raise ValueError(f"scal must be the ({N_SCALARS},) vector of ddim_step_scalars")
-    return [float(v) for v in s[:7]]
+    return [float(v) for v in s]
 
 
 def reference_ddim_head_update(x, shot_a, shot_b, xt, noise: Optional[torch.Tensor],

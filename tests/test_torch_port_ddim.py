@@ -46,8 +46,10 @@ def test_step_scalars_equal_jax():
     want = np.asarray(jax_ddim.ddim_step_scalars(jnp.asarray(ac), jnp.asarray(an),
                                                  jnp.asarray(sig), jnp.asarray(c)))
     got = ddim_step_scalars(ac, an, sig, c)
-    assert got.dtype == np.float32 and got.shape == (7, 8)
-    np.testing.assert_allclose(got, want, rtol=1e-6)
+    # the JAX vector's eighth slot is the TPU layout's zero pad
+    assert got.dtype == np.float32 and got.shape == (7, 7) and want.shape == (7, 8)
+    np.testing.assert_array_equal(want[:, 7], 0)
+    np.testing.assert_allclose(got, want[:, :7], rtol=1e-6)
     np.testing.assert_array_equal(ddim_step_scalars(ac[2], an[2], sig[2], c[2]), got[2])
 
 
@@ -67,11 +69,12 @@ def _head_inputs(c, seed=0):
 @pytest.mark.parametrize("sigma", [0.0, 0.2])
 def test_plain_update_matches_jax_kernel(c, sigma):
     maps, xt, noise, p = _head_inputs(c)
-    scal = ddim_step_scalars(0.37, 0.52, sigma, np.sqrt(1 - 0.52 - sigma ** 2))
+    step = (0.37, 0.52, sigma, np.sqrt(1 - 0.52 - sigma ** 2))
+    scal = ddim_step_scalars(*step)
+    jscal = jax_ddim.ddim_step_scalars(*map(jnp.float32, step))
     jargs = [jnp.asarray(a) for a in maps + [xt, noise] + p]
-    want = np.asarray(jax_ddim.fused_ddim_head_update(*jargs, jnp.asarray(scal),
-                                                      interpret=True))
-    want_ref = np.asarray(jax_ddim.reference_ddim_head_update(*jargs, jnp.asarray(scal)))
+    want = np.asarray(jax_ddim.fused_ddim_head_update(*jargs, jscal, interpret=True))
+    want_ref = np.asarray(jax_ddim.reference_ddim_head_update(*jargs, jscal))
     tp = [_t(p[0].T), _t(p[1]), _t(p[2].T), _t(p[3]), _t(p[4].T), _t(p[5])]
     # sigma = 0 draws no noise: the port passes None
     got = fused_ddim_head_update(*map(_t, maps), _t(xt), _t(noise) if sigma else None, *tp, scal)
