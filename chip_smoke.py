@@ -6,12 +6,15 @@
 Every phase runs, in this order (any failure exits non-zero):
   env      the card's name and power limit, torch / CUDA versions, TF32 flags
   build    nvcc builds every kernel of the port from noisediff_tpu_torch/csrc/
-           (one compiler process per source, all at once)
+           (one compiler process per source, all at once); ptxas's registers
+           and spills, and the flash kernel's main-loop SASS per score element
   kernels  each kernel against its plain PyTorch version on the card, at
            every shape the generation, training, DDIM, wgrad and attention
            paths give it; CUDA-event timings of both beside the card's bound
            for the same work, and of one PyTorch call that computes the same
-           function where there is one (cuDNN's wgrad, SDPA)
+           function where there is one (cuDNN's wgrad, SDPA): per call, and
+           for those two kernels and their library calls on the card's
+           clock too (back-to-back calls queued behind a sleep)
   model    the full-width (dim 48) NoiseDiffNet forward on the card, bf16
            through the kernels, against the same weights on the CPU
   profile  one model evaluation at the canonical shape: CUDA-event time and
@@ -41,7 +44,8 @@ Every phase runs, in this order (any failure exits non-zero):
            with no host sync; the same with a sync after each step; batch
            uploaded before each step) and the device busy time by kernel
            class (torch.profiler); the idle share of each and of the CLI
-           run's step
+           run's step; then the conv_wgrad route's device time per step and
+           whether the gradient reaching its convs is channels-last
   ddim     DDIM-100 generation through the CLI at the canonical config
            (--sampler ddim --sampling_timesteps 100), 2 batches, through the
            fused DDIM tail (the ddim_head kernel): the npy contract, 100
@@ -168,6 +172,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_device_ms(fn, n: int = 20, reps: int = 3) -> float:
+    """Per-call time on the card's clock: n back-to-back calls between one
+    pair of CUDA events, queued behind a sleep kernel so that the wrappers'
+    host work (library lookup, allocations, the ctypes call) overlaps the
+    card's work instead of falling between the events; the median of reps
+    windows, divided by n."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms at the card's clock: the host queues the calls
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
@@ -218,6 +246,50 @@ def compare(name, got, want, scale=None):
         raise AssertionError(f"{name}: {bad} elements outside atol {atol} + rtol {rtol}; "
                              f"max abs err {float(err.max())}")
     return float(err.max())
+
+
+# SASS opcode classes counted in the flash kernel's main loop
+SASS_CLASSES = (("MUFU", "exponential (MUFU)"), ("HMMA", "tensor product (HMMA)"),
+                ("LDSM", "ldmatrix (LDSM)"), ("F2FP", "bf16x2 pack / round (F2FP)"),
+                ("HMNMX2", "bf16x2 max (HMNMX2)"), ("FFMA", "FFMA"), ("FADD", "FADD"),
+                ("FMUL", "FMUL"), ("FMNMX", "FMNMX"))
+
+
+def flash_sass_counts(lib_path: str, nvcc: str):
+    """The flash kernel at D = 32 in SASS (cuobjdump): the instructions of its
+    main loop (the backward branch's span), by class, per score element. A
+    tile body is 64 elements per lane (32 rows x 64 keys / 32 lanes) and
+    runs 64 + 4 exponentials (the elements and the 4 rows' rescale factors),
+    so the loop holds round(MUFU.EX2 / 68) bodies."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    sections = re.split(r"\n\s*Function : ", text)
+    body = next(sec for sec in sections if "flash_attention_fwdILi32E" in sec.split("\n", 1)[0])
+    inst = []  # (address, opcode, text)
+    for line in body.splitlines():
+        mt = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if mt:
+            text_i = mt.group(2).strip()
+            op = re.sub(r"^@!?U?P\w+\s+", "", text_i).split()[0]
+            inst.append((int(mt.group(1), 16), op, text_i))
+    loops = []
+    for addr, op, text_i in inst:
+        tgt = re.findall(r"0x[0-9a-f]+", text_i) if op.startswith("BRA") else None
+        if tgt and int(tgt[-1], 16) < addr:
+            loops.append([i for i in inst if int(tgt[-1], 16) <= i[0] <= addr])
+    span = max(loops, key=lambda sp: sum(1 for i in sp if i[1].startswith("MUFU.EX2")))
+    exps = sum(1 for i in span if i[1].startswith("MUFU.EX2"))
+    bodies = max(1, round(exps / 68))
+    elements = 64 * bodies
+    counts = {label: sum(1 for i in span if i[1].split(".")[0] == cls) / elements
+              for cls, label in SASS_CLASSES}
+    counts["all"] = len(span) / elements
+    counts["not MUFU, HMMA or LDSM"] = (len(span) - sum(
+        1 for i in span if i[1].split(".")[0] in ("MUFU", "HMMA", "LDSM"))) / elements
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -420,14 +492,25 @@ def kernels_wgrad(randn, seed: int):
 
         ms = time_ms(lambda: conv_wgrad(g, x, k, k))
         lib_ms = time_ms(library)
+        dev_ms = time_device_ms(lambda: conv_wgrad(g, x, k, k))
+        lib_dev_ms = time_device_ms(library)
         plain = time_ms(lambda: reference_conv_wgrad(g, x, k, k), reps=3)
         b_ms, b_by = bound(nbytes(x) + nbytes(g) + got.numel() * 4,
                            2 * BATCH * h * w * k * k * ci * co, PEAK_BF16_FLOPS)
         rows.append(dict(shape=[BATCH, h, w, ci, co, k], calls=count, ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, max_abs_err=err))
-        log(f"  conv_wgrad {h}^2 {ci}->{co} {k}x{k} (x{count}): {ms:.4f} ms (plain {plain:.4f}, "
-            f"cuDNN {lib_ms:.4f}, bound {b_ms:.4f} {b_by}), max abs err {err:.3g}")
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                         library_device_ms=lib_dev_ms, max_abs_err=err))
+        log(f"  conv_wgrad {h}^2 {ci}->{co} {k}x{k} (x{count}): {ms:.4f} ms per call, "
+            f"{dev_ms:.4f} on the card's clock (cuDNN {lib_ms:.4f} / {lib_dev_ms:.4f}; plain "
+            f"{plain:.4f}; bound {b_ms:.4f} {b_by}, {dev_ms / b_ms:.2f}x), max abs err {err:.3g}")
         del x, g, got
+    tot = {key: sum(r[key] * r["calls"] for r in rows)
+           for key in ("ms", "library_ms", "device_ms", "library_device_ms", "bound_ms")}
+    met = "met" if tot["device_ms"] <= tot["library_device_ms"] else "missed"
+    log(f"  conv_wgrad per wgrad-route step: {tot['ms']:.4f} ms per call summed, "
+        f"{tot['device_ms']:.4f} on the card's clock; cuDNN {tot['library_ms']:.4f} / "
+        f"{tot['library_device_ms']:.4f}; bound {tot['bound_ms']:.4f}; target (at or under "
+        f"cuDNN on the card's clock) {met}")
     return {"conv_wgrad": rows}
 
 
@@ -461,17 +544,22 @@ def kernels_attention(randn):
     del got, want
     ms = time_ms(lambda: flash_attention(q, k, v))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    dev_ms = time_device_ms(lambda: flash_attention(q, k, v))
+    lib_dev_ms = time_device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     plain = time_ms(lambda: reference_flash_attention(q, k, v), reps=5)
     exps = b * heads * n * n
     exp_ms = exps / (16 * _build.sm_count(q.device) * max_sm_clock_hz()) * 1e3
     b_ms, b_by = bound(4 * nbytes(q), 4 * b * heads * n * n * d, PEAK_BF16_FLOPS)
     if exp_ms > b_ms:
         b_ms, b_by = exp_ms, "operations"
-    log(f"  flash_attention {b}x{heads}x{n}x{d}: {ms:.4f} ms (plain {plain:.4f}, SDPA "
-        f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by}: exponentials {exp_ms:.4f}), max abs err "
-        f"{err:.3g}, rel L2 {rel:.3g}")
+    log(f"  flash_attention {b}x{heads}x{n}x{d}: {ms:.4f} ms per call, {dev_ms:.4f} on the "
+        f"card's clock (SDPA {lib_ms:.4f} / {lib_dev_ms:.4f}; plain {plain:.4f}; bound "
+        f"{b_ms:.4f} {b_by}: exponentials {exp_ms:.4f}, {dev_ms / b_ms:.2f}x), max abs err "
+        f"{err:.3g}, rel L2 {rel:.3g}; target (at or under SDPA on the card's clock) "
+        f"{'met' if dev_ms <= lib_dev_ms else 'missed'}")
     return {"flash_attention": [dict(shape=[b, heads, n, d], calls=1, ms=ms, plain_ms=plain,
                                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                     device_ms=dev_ms, library_device_ms=lib_dev_ms,
                                      max_abs_err=err)]}
 
 
@@ -584,6 +672,8 @@ def phase_model(seed: int):
 
 
 def _category(name: str) -> str:
+    if "conv_wgrad" in name:
+        return "conv_wgrad kernel"
     if "attn_tail_bwd" in name or "wgrad_partial" in name or "sum_splits" in name:
         return "attn_tail backward kernel"
     if "attn_tail" in name:
@@ -1034,7 +1124,58 @@ def phase_train_profile(seed: int, cli_period_ms: float):
     log("  top kernels:")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {ms:9.4f} ms  {name[:110]}")
-    return dict(periods=periods, wall_ms=wall_ms, busy_ms=busy, categories=cats)
+    out = dict(periods=periods, wall_ms=wall_ms, busy_ms=busy, categories=cats)
+    out["wgrad_route"] = profile_wgrad_route(step, batch, g)
+    return out
+
+
+def profile_wgrad_route(step, batch, gen):
+    """The same training step on the conv_wgrad route (NOISEDIFF_WGRAD=
+    pallas): whether the gradient reaching each routed conv's backward
+    (models/blocks._ConvWgrad) is channels-last, so that to_nhwc(g) is a
+    view rather than a copy; then the device busy time per step by kernel
+    class (torch.profiler), the conv_wgrad kernels' share among it."""
+    import torch
+
+    from noisediff_tpu_torch.models import blocks
+
+    layouts = {"channels-last": 0, "other": 0}
+    orig = blocks._ConvWgrad.backward
+
+    def spy(ctx, g):
+        layouts["channels-last" if g.is_contiguous(memory_format=torch.channels_last)
+                else "other"] += 1
+        return orig(ctx, g)
+
+    os.environ["NOISEDIFF_WGRAD"] = "pallas"
+    try:
+        blocks._ConvWgrad.backward = staticmethod(spy)
+        step(batch, gen)
+        blocks._ConvWgrad.backward = staticmethod(orig)
+        step(batch, gen)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PROFILE_STEPS):
+                step(batch, gen)
+            torch.cuda.synchronize()
+    finally:
+        blocks._ConvWgrad.backward = staticmethod(orig)
+        del os.environ["NOISEDIFF_WGRAD"]
+    log(f"  conv_wgrad route: the gradient reaching the routed convs' backward is "
+        f"channels-last at {layouts['channels-last']} of "
+        f"{layouts['channels-last'] + layouts['other']} convs (to_nhwc(g) copies at the others)")
+    by_name = _device_ms_by_name(prof, PROFILE_STEPS)
+    if not by_name:
+        log("  torch.profiler recorded no device time on the conv_wgrad route")
+        return dict(g_layouts=layouts)
+    busy = sum(by_name.values())
+    cats = {}
+    for name, ms in by_name.items():
+        cats[_category(name)] = cats.get(_category(name), 0.0) + ms
+    log(f"  conv_wgrad route: device busy {busy:.4f} ms per step (torch.profiler), of which:")
+    for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {cat}")
+    return dict(g_layouts=layouts, busy_ms=busy, categories=cats)
 
 
 def make_sid_tree(root: str, seed: int) -> None:
@@ -1220,8 +1361,10 @@ KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is 
 
 
 def kernels_line(results, launches):
-    """One entry per kernel. ms, plain_ms, bound_ms and library_ms are
-    summed over the calls of one model evaluation at the canonical
+    """One entry per kernel. ms, plain_ms, bound_ms and library_ms (and,
+    for conv_wgrad and flash_attention, device_ms and library_device_ms:
+    the same on the card's clock, `time_device_ms`) are summed over the
+    calls of one model evaluation at the canonical
     generation config, one training step at the canonical training config,
     one DDIM evaluation, one training step on the conv_wgrad route or one
     Attention call (`ms_per`): each shape's median time times its calls;
@@ -1235,6 +1378,9 @@ def kernels_line(results, launches):
         counted = [r for r in rows if r["calls"]]
         lib = (sum(r["library_ms"] * r["calls"] for r in counted)
                if all(r.get("library_ms") is not None for r in counted) else None)
+        # the card's clock (time_device_ms), where the kernel's rows have it
+        device = {k: sum(r[k] * r["calls"] for r in rows)
+                  for k in ("device_ms", "library_device_ms") if all(k in r for r in rows)}
         # the bound of the shapes that carry most of the bound time
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "bytes")
         n, split = launches[name]
@@ -1244,7 +1390,7 @@ def kernels_line(results, launches):
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
-            "library_ms": lib, "ms_per": per, "per_shape": rows,
+            "library_ms": lib, **device, "ms_per": per, "per_shape": rows,
         })
     return {"kernels": out}
 
@@ -1283,6 +1429,9 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
+    sass = flash_sass_counts(_build._lib_path("flash_attention"), _build._nvcc())
+    log("  flash_attention D=32 main loop, SASS instructions per score element: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sass.items()))
 
     log("[kernels] kernel vs plain version on the card")
     results = phase_kernels(args.seed)

@@ -128,8 +128,8 @@ __global__ void channel_partial_sums(const bf16* __restrict__ a, const bf16* __r
 }
 
 // out[i] = sum_k part[k][i] for k = 0 .. S-1 in that order: the fixed-order
-// second pass of the split-K products (attn_tail.cu's weight gradients,
-// conv_wgrad.cu). part (S, n), out (n,), fp32.
+// second pass of attn_tail.cu's split-K weight gradients. part (S, n), out
+// (n,), fp32.
 __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ out, int S,
                            long long n) {
   const long long stride = (long long)gridDim.x * blockDim.x;

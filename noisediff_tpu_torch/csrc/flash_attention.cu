@@ -10,54 +10,128 @@
 //
 // Bound on this card: 4 Nq Nk D FLOP and Nq Nk exponentials per (batch,
 // head). At B = 4, H = 4, N = 4096, D = 32 that is 34.4 GFLOP (35 us at 989
-// TFLOP/s) and 268 M exponentials (16 per SM per clock on 132 SMs: about
-// 70 us at 1.83 GHz), so the exponentials bind. The bytes are 4.2 MB.
+// TFLOP/s) and 268 M exponentials (16 per SM per clock on 132 SMs: 64 us at
+// 1.98 GHz), so the exponential unit binds. The bytes are 4.2 MB.
 //
-// Design:
-//   * one block of 4 warps per (batch x head, 64-query tile); each warp owns
-//     16 query rows, whose q fragments stay in registers for the whole pass;
-//   * k and v tiles of 64 keys go through shared memory in two stages
-//     loaded with cp.async, the next tile in flight while this one is used;
-//     rows are padded by 8 elements so the fragment reads do not collide
-//     in banks;
-//   * S = q k^T and o += p v run on the tensor cores as mma.sync m16n8k16
-//     bf16 products with fp32 accumulators. The probabilities never leave
-//     registers: the accumulator layout of two 8-key tiles of S is the
-//     operand layout of one 16-key step of p v, and v's operand comes from
-//     shared memory transposed by ldmatrix;
-//   * the running max and normaliser are fp32 registers, reduced across the
-//     four lanes that share a row with shuffles; keys past Nk score -inf
-//     and their k / v rows are zero in shared memory.
+// What held the first design back (5.1x the bound, 1.58x SDPA): about
+// nine non-exponential instructions per score element (two conversions to
+// round a logit, the scale multiply, a key < Nk select on every tile, the
+// max, the subtraction, __expf's own multiply, the row sum, half a pack)
+// against the exponential unit's 16 lanes, and 16 query rows per warp, so
+// every k and v fragment was read from shared memory once per 16 rows.
+//
+// Design (mma.sync m16n8k16 bf16 products, fp32 accumulators):
+//   * per score element the work besides the exponential is: half a
+//     `cvt.rn.bf16x2.f32` (the logit rounded to bf16 two at a time), under
+//     a quarter of a bf16x2 max (three-input VHMNMX; exact, the values
+//     already are bf16), one shift or mask to widen the rounded logit, one
+//     FFMA that applies scale * log2(e) and subtracts the scaled row max
+//     ahead of `ex2.approx`, one FADD of the row sum and half a pack of the
+//     probabilities into the P v operand; the key mask runs only on the
+//     last, ragged tile, outside the main loop;
+//   * the running max moves only when a row's tile max passes it by more
+//     than 2^8 in the exponent (a warp vote), so most tiles skip the
+//     rescale of o and of the normaliser; the probabilities against a
+//     stale max stay under 2^8, where bf16 rounds them as finely;
+//   * each warp owns 32 query rows (16 at D = 64), so a k or v fragment read
+//     by ldmatrix feeds two m-tiles: a quarter of an ldmatrix per element;
+//   * k and v tiles of 64 keys stream through a ring of STAGES buffers
+//     filled by cp.async (zero past Nk), one barrier per tile; rows are
+//     padded by 8 elements so the 8 rows an ldmatrix reads fall in distinct
+//     bank groups. Four 128-thread blocks share an SM (128 registers), so
+//     one warp's exponentials overlap another's products and the 512
+//     blocks at 4096 tokens run in one wave (three per SM took 1.3 waves);
+//   * the probabilities never leave registers: the accumulator layout of two
+//     8-key tiles of S is the operand layout of one 16-key step of P v, and
+//     v's operand comes from shared memory transposed by ldmatrix. The row
+//     sums stay per lane until the end.
+// ptxas (CUDA 12.9, sm_90a): D = 32 128 registers, 30720 bytes of shared
+// memory, 24 bytes of stack; D = 64 128 registers, 8 bytes of stack. The
+// main loop's SASS (cuobjdump, counted by chip_smoke.flash_sass_counts):
+// 9.9 instructions per score element, of them 1.06 MUFU.EX2, 1.0 HMMA,
+// 0.25 LDSM and 7.6 others (1.0 F2FP, 1.0 FFMA, 1.19 FADD, 0.75 FMUL of
+// which 0.5 are the rarely taken rescale, ~1.1 shifts and masks, the
+// rest moves, addresses and the tile's copies), from 12.6 with a rolled
+// copy loop and a rescale on every tile. The
+// exponential unit (1 per element at 16 per SM per clock) and the issue
+// slots (~9.4 taken per element at 128 per SM per clock) now bind about
+// equally; what is left is latency between a warp's dependent phases.
+// wgmma is not used: at D = 32 both products are 2 k-steps deep, and what
+// binds is the exponential and ALU work per element, which the design cuts.
 // Rounding follows the plain version (flash_attention._attention_reference
 // of the JAX package): the logits are rounded to bf16 before the fp32
-// scale, the probabilities go into the p v product as bf16, and the output
+// scale, the probabilities go into the P v product as bf16, and the output
 // is rounded to bf16 once, after the division by the normaliser.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block, 16 per warp
 constexpr int BK = 64;  // keys per k / v tile
-constexpr int THREADS = 128;
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+template <int D>
+struct Cfg {
+  static constexpr int MT = D == 32 ? 2 : 1;  // 16-row m-tiles per warp
+  static constexpr int BQ = WARPS * 16 * MT;  // query rows per block
+  static constexpr int LD = D + 8;            // padded shared row, elements
+  static constexpr int KD = D / 16;           // k-steps of q k^T
+  static constexpr int DT = D / 8;            // 8-column tiles of o
+  static constexpr int NT = BK / 8;           // 8-key tiles of S
+  static constexpr int STAGES = D == 32 ? 3 : 2;
+  static constexpr int MIN_BLOCKS = 4;        // 128 registers: 16 warps per SM
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // c (16x8 fp32) += a (16x16 bf16, row) b (16x8 bf16, col)
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two bf16 from two floats, the first in the low half (the lower index).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p, bool trans) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if (trans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+  }
+}
+
+// Two bf16 (round to nearest) from two floats, the first in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 r = __hmax2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+__device__ __forceinline__ float lo_f(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_f(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -67,36 +141,176 @@ __device__ __forceinline__ uint32_t load32(const bf16* p) {
 }
 
 // Whole block: start the copy of keys [k0, k0 + BK) of k and v into one
-// stage, rows of ld elements; rows past nk are zero.
+// stage; rows past nk are zero.
 template <int D>
-__device__ void load_kv(const bf16* __restrict__ k, const bf16* __restrict__ v, int k0, int nk,
-                        bf16* ks, bf16* vs) {
-  constexpr int LD = D + 8, VEC = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < BK * VEC; i += THREADS) {
+__device__ __forceinline__ void load_kv(const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                        int k0, int nk, bf16* ks, bf16* vs) {
+  constexpr int LD = Cfg<D>::LD, VEC = D / 8;
+  static_assert(BK * VEC % THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int it = 0; it < BK * VEC / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
     const int r = i / VEC, c = (i % VEC) * 8;
-    if (k0 + r < nk) {
-      cp_async16(ks + r * LD + c, k + (size_t)(k0 + r) * D + c);
-      cp_async16(vs + r * LD + c, v + (size_t)(k0 + r) * D + c);
-    } else {
-      *reinterpret_cast<uint4*>(ks + r * LD + c) = zero;
-      *reinterpret_cast<uint4*>(vs + r * LD + c) = zero;
-    }
+    const bool in = k0 + r < nk;
+    const size_t off = in ? (size_t)(k0 + r) * D + c : 0;
+    cp_async16(ks + r * LD + c, k + off, in ? 16 : 0);
+    cp_async16(vs + r * LD + c, v + off, in ? 16 : 0);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// Whole block, before tile j: wait until it is in and every warp is done
+// with tile j - 1's stage, then start the copy of tile j + STAGES - 1 into
+// that stage (an empty group past the last tile keeps the count).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int nq, int nk,
-                    float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;  // k-steps of q k^T
-  constexpr int NT = BK / 8;  // 8-key tiles of S
-  constexpr int DT = D / 8;   // 8-column tiles of o
-  __shared__ __align__(16) bf16 ks[2][BK * LD];
-  __shared__ __align__(16) bf16 vs[2][BK * LD];
+__device__ __forceinline__ void next_tile(int j, int tiles, const bf16* __restrict__ k,
+                                          const bf16* __restrict__ v, int nk, bf16* ks,
+                                          bf16* vs) {
+  constexpr int STAGES = Cfg<D>::STAGES, TILE_ELEMS = BK * Cfg<D>::LD;
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  const int jn = j + STAGES - 1;
+  if (jn < tiles) {
+    const int st = jn % STAGES;
+    load_kv<D>(k, v, jn * BK, nk, ks + st * TILE_ELEMS, vs + st * TILE_ELEMS);
+  } else {
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+}
+
+// One warp, one tile of BK keys: S = q k^T, the online softmax update and
+// o += P v. `valid` keys of the tile are real (MASK: the ragged last tile).
+template <int D, bool MASK>
+__device__ __forceinline__ void attend(const bf16* kt, const bf16* vt,
+                                       const uint32_t (&qf)[Cfg<D>::MT][Cfg<D>::KD][4],
+                                       float (&acc)[Cfg<D>::MT][Cfg<D>::DT][4],
+                                       float (&m)[Cfg<D>::MT][2], float (&l)[Cfg<D>::MT][2],
+                                       float c, int valid) {
+  using C = Cfg<D>;
+  const int lane = threadIdx.x & 31, li = lane >> 3, lj = lane & 7, t = lane & 3;
+
+  // S = q k^T, 8 keys at a time (lane: rows g, g + 8 x keys 8 n + 2 t + {0,
+  // 1} of each m-tile), each 8-key tile rounded to bf16 two logits per
+  // register at once, in the order of P v's A operand: pk[mi][n / 2][2 (n %
+  // 2) + r] holds row g + 8 r
+  uint32_t pk[C::MT][BK / 16][4];
+#pragma unroll
+  for (int n = 0; n < C::NT; ++n) {
+    float s[C::MT][4];
+#pragma unroll
+    for (int mi = 0; mi < C::MT; ++mi) s[mi][0] = s[mi][1] = s[mi][2] = s[mi][3] = 0.0f;
+#pragma unroll
+    for (int kq = 0; kq < C::KD / 2; ++kq) {  // 32 columns of d per ldmatrix.x4
+      uint32_t kb[4];
+      ldsm_x4(kb, kt + (n * 8 + lj) * C::LD + kq * 32 + 8 * li, false);
+#pragma unroll
+      for (int mi = 0; mi < C::MT; ++mi) {
+        mma16816(s[mi], qf[mi][2 * kq], kb[0], kb[1]);
+        mma16816(s[mi], qf[mi][2 * kq + 1], kb[2], kb[3]);
+      }
+    }
+    uint32_t keep = 0xffffffffu;
+    if (MASK) {
+      const int key = n * 8 + 2 * t;
+      keep = (key < valid ? 0x0000ffffu : 0u) | (key + 1 < valid ? 0xffff0000u : 0u);
+    }
+#pragma unroll
+    for (int mi = 0; mi < C::MT; ++mi) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t w = pack_bf16(s[mi][2 * r], s[mi][2 * r + 1]);
+        pk[mi][n / 2][2 * (n % 2) + r] = MASK ? (w & keep) | (0xff80ff80u & ~keep) : w;
+      }
+    }
+  }
+
+  // The running max m moves only when a row's tile max exceeds it by more
+  // than 2^8 in the exponent (and on the first tile, m = -inf); otherwise
+  // the probabilities are taken against the stale m and stay under 2^8,
+  // where fp32 sums and bf16 roundings are as exact as under 1. Most tiles
+  // thus skip the rescale of o and l.
+  float mx[C::MT][2];
+  bool grow = false;
+  const float jump = 8.0f / c;  // 2^8 in the exponent, in logit units
+#pragma unroll
+  for (int mi = 0; mi < C::MT; ++mi) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      uint32_t mx2 = pk[mi][0][r];
+#pragma unroll
+      for (int n = 1; n < C::NT; ++n) mx2 = max_bf16x2(mx2, pk[mi][n / 2][2 * (n % 2) + r]);
+      float v = fmaxf(lo_f(mx2), hi_f(mx2));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      mx[mi][r] = v;
+      grow |= v - m[mi][r] > jump;
+    }
+  }
+  if (__any_sync(0xffffffffu, grow)) {  // the warp's rows take their new max
+#pragma unroll
+    for (int mi = 0; mi < C::MT; ++mi) {
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[mi][r], mx[mi][r]);
+        alpha[r] = ex2((m[mi][r] - mn) * c);  // 0 on the first tile (m = -inf)
+        m[mi][r] = mn;
+        l[mi][r] *= alpha[r];
+      }
+#pragma unroll
+      for (int d = 0; d < C::DT; ++d) {
+        acc[mi][d][0] *= alpha[0];
+        acc[mi][d][1] *= alpha[0];
+        acc[mi][d][2] *= alpha[1];
+        acc[mi][d][3] *= alpha[1];
+      }
+    }
+  }
+
+  // P = 2^(logit c - m c), rounded to bf16 in place; row sums per lane
+#pragma unroll
+  for (int mi = 0; mi < C::MT; ++mi) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mc = m[mi][r] * c;
+      float rs = 0.0f;
+#pragma unroll
+      for (int n = 0; n < C::NT; ++n) {
+        uint32_t& w = pk[mi][n / 2][2 * (n % 2) + r];
+        const float p0 = ex2(fmaf(lo_f(w), c, -mc));
+        const float p1 = ex2(fmaf(hi_f(w), c, -mc));
+        rs += p0;
+        rs += p1;
+        w = pack_bf16(p0, p1);
+      }
+      l[mi][r] += rs;
+    }
+  }
+
+  // o += P v, 16 keys a step; P's operand is two 8-key tiles of S
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t vb[4];
+      ldsm_x4(vb, vt + (kc * 16 + lj + 8 * (li & 1)) * C::LD + dp * 16 + 8 * (li >> 1), true);
+#pragma unroll
+      for (int mi = 0; mi < C::MT; ++mi) {
+        mma16816(acc[mi][2 * dp], pk[mi][kc], vb[0], vb[1]);
+        mma16816(acc[mi][2 * dp + 1], pk[mi][kc], vb[2], vb[3]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
+    flash_attention_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o, int nq, int nk,
+                        float c) {
+  using C = Cfg<D>;
+  __shared__ __align__(16) bf16 ks[C::STAGES][BK * C::LD];
+  __shared__ __align__(16) bf16 vs[C::STAGES][BK * C::LD];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -105,122 +319,75 @@ flash_attention_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   o += bh * nq * D;
   k += bh * nk * D;
   v += bh * nk * D;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g, r1 = r0 + 8;  // this lane's rows
+  const int row0 = blockIdx.x * C::BQ + warp * 16 * C::MT + g;  // + 16 mi, + 8
 
-  uint32_t qf[KD][4];
+  uint32_t qf[C::MT][C::KD][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < nq ? load32(q + (size_t)r0 * D + c) : 0u;
-    qf[kk][1] = r1 < nq ? load32(q + (size_t)r1 * D + c) : 0u;
-    qf[kk][2] = r0 < nq ? load32(q + (size_t)r0 * D + c + 8) : 0u;
-    qf[kk][3] = r1 < nq ? load32(q + (size_t)r1 * D + c + 8) : 0u;
+  for (int mi = 0; mi < C::MT; ++mi) {
+    const int r0 = row0 + 16 * mi, r1 = r0 + 8;
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk) {
+      const int col = kk * 16 + 2 * t;
+      qf[mi][kk][0] = r0 < nq ? load32(q + (size_t)r0 * D + col) : 0u;
+      qf[mi][kk][1] = r1 < nq ? load32(q + (size_t)r1 * D + col) : 0u;
+      qf[mi][kk][2] = r0 < nq ? load32(q + (size_t)r0 * D + col + 8) : 0u;
+      qf[mi][kk][3] = r1 < nq ? load32(q + (size_t)r1 * D + col + 8) : 0u;
+    }
   }
-  float acc[DT][4];
+  float acc[C::MT][C::DT][4];
+  float m[C::MT][2], l[C::MT][2];
 #pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.0f;
-  float m[2] = {neg_inf(), neg_inf()};  // running max of rows r0, r1
-  float l[2] = {0.0f, 0.0f};            // running normaliser
+  for (int mi = 0; mi < C::MT; ++mi) {
+#pragma unroll
+    for (int d = 0; d < C::DT; ++d) {
+      acc[mi][d][0] = acc[mi][d][1] = acc[mi][d][2] = acc[mi][d][3] = 0.0f;
+    }
+    m[mi][0] = m[mi][1] = neg_inf();  // running max of the bf16 logits
+    l[mi][0] = l[mi][1] = 0.0f;       // running normaliser, this lane's keys
+  }
 
   const int tiles = (nk + BK - 1) / BK;
-  load_kv<D>(k, v, 0, nk, ks[0], vs[0]);
-  for (int j = 0; j < tiles; ++j) {
-    if (j + 1 < tiles) {
-      load_kv<D>(k, v, (j + 1) * BK, nk, ks[(j + 1) & 1], vs[(j + 1) & 1]);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < C::STAGES - 1; ++i) {
+    if (i < tiles) {
+      load_kv<D>(k, v, i * BK, nk, ks[i], vs[i]);
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      asm volatile("cp.async.commit_group;\n" ::);
     }
-    __syncthreads();
-    const bf16* kt = ks[j & 1];
-    const bf16* vt = vs[j & 1];
-
-    // S = q k^T for 64 keys: lane holds rows (r0, r1) x keys 8 n + 2 t + {0, 1}
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const bf16* kr = kt + (n * 8 + g) * LD + kk * 16 + 2 * t;
-        const uint32_t b[2] = {load32(kr), load32(kr + 8)};
-        mma16816(s[n], qf[kk], b);
-      }
-    }
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * BK + n * 8 + 2 * t + (e & 1);
-        const float val = key < nk ? round_bf16(s[n][e]) * scale : neg_inf();
-        s[n][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2], rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = __expf(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[n][e] - mx[e >> 1]);
-        s[n][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * alpha[r] + rs[r];
-    }
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      acc[d][0] *= alpha[0];
-      acc[d][1] *= alpha[0];
-      acc[d][2] *= alpha[1];
-      acc[d][3] *= alpha[1];
-    }
-
-    // o += p v, 16 keys a step; p's operand is two 8-key tiles of S
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const unsigned row =
-          static_cast<unsigned>(__cvta_generic_to_shared(vt + (kk * 16 + (lane & 15)) * LD));
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        uint32_t b[2];
-        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                     : "=r"(b[0]), "=r"(b[1])
-                     : "r"(row + d * 16));
-        mma16816(acc[d], a, b);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
+  }
+  const int whole = nk / BK;  // the main loop: unmasked tiles
+  for (int j = 0; j < whole; ++j) {
+    next_tile<D>(j, tiles, k, v, nk, &ks[0][0], &vs[0][0]);
+    attend<D, false>(ks[j % C::STAGES], vs[j % C::STAGES], qf, acc, m, l, c, BK);
+  }
+  if (whole < tiles) {  // the ragged last tile
+    next_tile<D>(whole, tiles, k, v, nk, &ks[0][0], &vs[0][0]);
+    attend<D, true>(ks[whole % C::STAGES], vs[whole % C::STAGES], qf, acc, m, l, c,
+                    nk - whole * BK);
   }
 
-  const float inv0 = 1.0f / l[0], inv1 = 1.0f / l[1];
 #pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    const int c = d * 8 + 2 * t;
-    if (r0 < nq) {
-      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r0 * D + c) =
-          __floats2bfloat162_rn(acc[d][0] * inv0, acc[d][1] * inv0);
+  for (int mi = 0; mi < C::MT; ++mi) {
+    const int r0 = row0 + 16 * mi, r1 = r0 + 8;
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[mi][r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[r] = 1.0f / sum;
     }
-    if (r1 < nq) {
-      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r1 * D + c) =
-          __floats2bfloat162_rn(acc[d][2] * inv1, acc[d][3] * inv1);
+#pragma unroll
+    for (int d = 0; d < C::DT; ++d) {
+      const int col = d * 8 + 2 * t;
+      if (r0 < nq) {
+        *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r0 * D + col) =
+            __floats2bfloat162_rn(acc[mi][d][0] * inv[0], acc[mi][d][1] * inv[0]);
+      }
+      if (r1 < nq) {
+        *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r1 * D + col) =
+            __floats2bfloat162_rn(acc[mi][d][2] * inv[1], acc[mi][d][3] * inv[1]);
+      }
     }
   }
 }
@@ -228,21 +395,21 @@ flash_attention_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int nq, int nk,
            float scale, cudaStream_t st) {
-  const dim3 grid((nq + BQ - 1) / BQ, BH);
+  const dim3 grid((nq + Cfg<D>::BQ - 1) / Cfg<D>::BQ, BH);
   flash_attention_fwd<D><<<grid, THREADS, 0, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), nq, nk, scale);
+      static_cast<bf16*>(o), nq, nk, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: (BH, nq, D); k, v: (BH, nk, D); bf16 contiguous; D in {32, 64};
-// nq, nk >= 1.
+// nq, nk >= 1; scale > 0.
 ND_EXPORT int nd_flash_attention(const void* q, const void* k, const void* v, void* o, int BH,
                                  int nq, int nk, int D, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nq < 1 || nk < 1) return (int)cudaErrorInvalidValue;
+  if (nq < 1 || nk < 1 || !(scale > 0.0f)) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 32: return launch<32>(q, k, v, o, BH, nq, nk, scale, st);
     case 64: return launch<64>(q, k, v, o, BH, nq, nk, scale, st);

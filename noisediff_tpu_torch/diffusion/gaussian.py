@@ -18,6 +18,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..cli.common import resolve_device
 from ..ops.kernels.ddim_head import ddim_step_scalars, fused_ddim_head_update
 from ..ops.schedules import DiffusionSchedule, make_schedule
 
@@ -91,12 +92,14 @@ class GaussianDiffusion:
     """Conditional DDPM training loss and sampling with pred_noise / pred_x0
     / pred_v.
 
-    `model_fn(x, t, condition)` is the denoiser, NHWC in and out."""
+    `model_fn(x, t, condition)` is the denoiser, NHWC in and out. The
+    schedule's buffers live on `device`: the card unless the caller names
+    the CPU; without a card that raises, as the CLIs' `--device cuda` does."""
 
     def __init__(self, model_fn: ModelFn, schedule: DiffusionSchedule, image_size: int,
                  channels: int = 4, objective: str = "pred_v",
                  sampling_timesteps: Optional[int] = None, ddim_sampling_eta: float = 0.0,
-                 auto_normalize: bool = False, device="cpu"):
+                 auto_normalize: bool = False, device="cuda"):
         if objective not in OBJECTIVES:
             raise ValueError(f"objective must be one of {OBJECTIVES}")
         if sampling_timesteps is not None and sampling_timesteps > schedule.num_timesteps:
@@ -109,7 +112,7 @@ class GaussianDiffusion:
         self.sampling_timesteps = sampling_timesteps
         self.ddim_sampling_eta = ddim_sampling_eta
         self.auto_normalize = auto_normalize
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.buffers = {
             name: torch.from_numpy(getattr(schedule, name)).to(self.device) for name in _BUFFERS
         }

@@ -108,7 +108,8 @@ class _ConvWgrad(torch.autograd.Function):
                 g, x, w, None, [1, 1], [ctx.padding] * 2, [1, 1], False, [0, 0], 1,
                 [True, False, False])[0]
         dw = conv_wgrad(to_nhwc(g), to_nhwc(x), kh, kw).permute(3, 2, 0, 1).contiguous()
-        db = g.float().sum((0, 2, 3)) if ctx.has_bias else None
+        # an fp32 sum of the bf16 gradient, without an fp32 copy of it
+        db = g.sum((0, 2, 3), dtype=torch.float32) if ctx.has_bias else None
         return dx, dw, db, None
 
 

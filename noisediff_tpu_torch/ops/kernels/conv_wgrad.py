@@ -13,26 +13,26 @@ Ci, kh, kw)). Counterpart of noisediff_tpu/ops/pallas/conv_wgrad.py
 `conv_wgrad` runs the plain version for a tensor on the CPU and the kernel
 for a tensor on the card; anything the kernel does not take raises. It is
 not differentiable: models/blocks.py's stride-1 SAME conv Function calls it
-in its backward. `conv_wgrad.launches` counts kernel launches.
+in its backward. `conv_wgrad.launches` counts kernel launches. `plan` is
+the kernel's work split, in plain Python so the CPU tests can hold it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, List, Tuple
 
 import torch
 
 from . import _build
 
 _SIGNATURES = {
-    "nd_conv_wgrad_partials_per_split": [ctypes.c_int] * 3,
-    "nd_conv_wgrad": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-    + [ctypes.c_longlong, ctypes.c_void_p],
+    "nd_conv_wgrad": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
 }
 _KERNEL_TAPS = (1, 3)
-_MAX_COLS = 64  # image columns of a pixel tile
-_ROWS = 2       # image rows of a pixel tile
-# blocks per SM the grid aims for (over all channel tiles)
-_BLOCKS_PER_SM = 2
+_TILE = 48  # channels of a ci or co tile's products; partial tiles are _TILE x _TILE
+# taps -> (image rows, image columns) of a pixel tile (csrc/conv_wgrad.cu, Geo)
+_PIXEL_TILE = {9: (8, 32), 3: (3, 32), 1: (3, 48)}
 
 
 def reference_conv_wgrad(g: torch.Tensor, x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
@@ -49,8 +49,59 @@ def reference_conv_wgrad(g: torch.Tensor, x: torch.Tensor, kh: int, kw: int) -> 
 
 
 def _tiles(c: int) -> int:
-    """WMMA tiles of 16 channels per channel tile: 3 (48), 2 or 1."""
+    """16-channel sub-tiles per channel tile: 3 (48), 2 or 1."""
     return 3 if c % 48 == 0 else 2 if c % 32 == 0 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, ci: int, co: int, kh: int, kw: int, sms: int) -> Dict[str, int]:
+    """The kernel's work split. The pixels are cut into tiles of `rows` x
+    `cols`; a unit is one pixel tile of one (ci tile, co tile) pair, and the
+    `units` are numbered pair-major (tile index: column fastest, then band,
+    then image). Block k of the `grid` (at most one per SM, never more
+    than the units) takes units [units k / grid, units (k + 1) / grid).
+    Each block writes one partial per pair it touches, into slot k + pair
+    (`segments`), one 48 x 48 tile per tap; `part_floats` is the scratch
+    those slots take. Cached per shape (a training step asks for the same
+    21 every step); callers do not change the dict."""
+    rows, cols = _PIXEL_TILE[kh * kw]
+    mt, nt = _tiles(ci), _tiles(co)
+    ctiles, bands = -(-w // cols), -(-h // rows)
+    tpp = b * bands * ctiles
+    pairs = (ci // (16 * mt)) * (co // (16 * nt))
+    units = pairs * tpp
+    grid = max(1, min(sms, units))
+    return dict(mt=mt, nt=nt, rows=rows, cols=cols, ctiles=ctiles, bands=bands, tpp=tpp,
+                pairs=pairs, units=units, grid=grid,
+                part_floats=(grid + pairs) * kh * kw * _TILE * _TILE)
+
+
+def block_of(u: int, units: int, grid: int) -> int:
+    """The block whose run holds unit u (`block_of` in csrc/conv_wgrad.cu)."""
+    return ((u + 1) * grid - 1) // units
+
+
+def segments(p: Dict[str, int]) -> List[Tuple[int, int, int, int, int]]:
+    """(block, pair, first unit, end unit, slot) of every partial the kernel
+    writes, in block order."""
+    out = []
+    for k in range(p["grid"]):
+        u, end = p["units"] * k // p["grid"], p["units"] * (k + 1) // p["grid"]
+        while u < end:
+            pair = u // p["tpp"]
+            stop = min(end, (pair + 1) * p["tpp"])
+            out.append((k, pair, u, stop, k + pair))
+            u = stop
+    return out
+
+
+def reduce_slots(p: Dict[str, int], pair: int) -> List[int]:
+    """The slots the second pass adds for one pair, in its order: the
+    blocks from the one holding the pair's first unit to the one holding
+    its last (`conv_wgrad_reduce`)."""
+    first = block_of(pair * p["tpp"], p["units"], p["grid"])
+    last = block_of((pair + 1) * p["tpp"] - 1, p["units"], p["grid"])
+    return [k + pair for k in range(first, last + 1)]
 
 
 def _launch(g, x, kh, kw):
@@ -71,20 +122,14 @@ def _launch(g, x, kh, kw):
     if ci % 16 or co % 16:
         raise ValueError(f"conv_wgrad kernel needs Ci and Co divisible by 16, got {ci}, {co}")
     dev = x.device
-    mt, nt = _tiles(ci), _tiles(co)
-    cols = min(_MAX_COLS, -(-w // 16) * 16)
-    tiles = b * -(-h // _ROWS) * -(-w // cols)
-    channel_tiles = (ci // (16 * mt)) * (co // (16 * nt))
-    splits = max(1, min(tiles, -(-_BLOCKS_PER_SM * _build.sm_count(dev) // channel_tiles)))
-    per_split = -(-tiles // splits)
-    splits = -(-tiles // per_split)
+    p = plan(b, h, w, ci, co, kh, kw, _build.sm_count(dev))
     lib = _build.library("conv_wgrad", _SIGNATURES)
-    parts = splits * lib.nd_conv_wgrad_partials_per_split(kh, kw, mt)
-    part = torch.empty(parts * kh * kw * ci * co, device=dev, dtype=torch.float32)
+    part = torch.empty(p["part_floats"], device=dev, dtype=torch.float32)
     out = torch.empty((kh, kw, ci, co), device=dev, dtype=torch.float32)
     code = lib.nd_conv_wgrad(
         _build.ptr(x), _build.ptr(g), _build.ptr(part), _build.ptr(out),
-        b, h, w, ci, co, kh, kw, mt, nt, cols, splits, per_split, _build.stream_ptr(dev),
+        b, h, w, ci, co, kh, kw, p["mt"], p["nt"], p["ctiles"], p["bands"], p["grid"],
+        _build.stream_ptr(dev),
     )
     _build.check(lib, code, "conv_wgrad")
     conv_wgrad.launches += 1

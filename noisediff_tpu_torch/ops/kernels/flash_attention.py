@@ -61,6 +61,8 @@ def _launch(q, k, v, scale: float):
     if k.shape != (b, h, nk, d) or v.shape != k.shape or nq < 1 or nk < 1:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"v {tuple(v.shape)} do not match")
+    if not scale > 0:
+        raise ValueError(f"flash_attention kernel takes a positive scale, got {scale}")
     dev = q.device
     out = torch.empty_like(q)
     lib = _build.library("flash_attention", _SIGNATURES)

@@ -303,6 +303,28 @@ def test_conv_wgrad_kernel(dev, b, h, w, ci, co, k):
     assert torch.equal(got, conv_wgrad(g, x, k, k))
 
 
+@pytest.mark.parametrize("b,h,w,ci,co,k", [
+    (1, 9, 40, 48, 48, 3), (2, 13, 70, 48, 96, 3), (1, 3, 48, 576, 384, 1),
+    (1, 64, 512, 48, 48, 3), (4, 64, 64, 576, 384, 1), (1, 17, 33, 96, 48, 1)])
+def test_conv_wgrad_kernel_edges(dev, b, h, w, ci, co, k):
+    """The tiled design's edges: W not a multiple of a pixel tile's columns
+    and odd H (the TMA boxes' zero fill past the image), B 1, 48 channels
+    (the 56-channel box's zero fill past the last channel), 576 -> 384 1x1,
+    pairs that each fit one block and one pair spread over every SM. Within
+    1e-4 of the largest sum, and the same bits from two calls."""
+    from noisediff_tpu_torch.ops.kernels.conv_wgrad import plan, reduce_slots
+
+    p = plan(b, h, w, ci, co, k, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    splits = {len(reduce_slots(p, pair)) for pair in range(p["pairs"])}
+    x = _randn(dev, b, h, w, ci, dtype=torch.bfloat16)
+    g = _randn(dev, b, h, w, co, dtype=torch.bfloat16, seed=1)
+    got = conv_wgrad(g, x, k, k)
+    want = reference_conv_wgrad(g, x, k, k)
+    assert got.shape == (k, k, ci, co) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), splits
+    assert torch.equal(got, conv_wgrad(g, x, k, k))
+
+
 @pytest.mark.parametrize("kh,kw", [(1, 3), (3, 1)])
 def test_conv_wgrad_kernel_rectangular(dev, kh, kw):
     x = _randn(dev, 2, 12, 20, 48, dtype=torch.bfloat16)
@@ -352,6 +374,25 @@ def test_flash_attention_kernel(dev, n, d):
     err = (got - want).abs()
     assert bool((err <= 2.0 ** -7 * (p @ v.float().abs())).all()), float(err.max())
     assert _rel(got, want) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d", [(1, 1, 40, 200, 32), (1, 1, 1, 4096, 32),
+                                         (2, 1, 130, 130, 64), (1, 1, 4096, 4100, 32),
+                                         (1, 3, 63, 65, 64)])
+def test_flash_attention_kernel_edges(dev, b, h, nq, nk, d):
+    """The redesign's edges, held to the same rounding bound: Nk not a
+    multiple of the 64-key tile (the masked last tile), Nq under a block's
+    query rows, D 64, BH 1."""
+    q = _randn(dev, b, h, nq, d, dtype=torch.bfloat16)
+    k, v = (_randn(dev, b, h, nk, d, dtype=torch.bfloat16, seed=s) for s in (1, 2))
+    got = flash_attention(q, k, v).float()
+    want = reference_flash_attention(q, k, v).float()
+    p = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * d ** -0.5, dim=-1)
+    err = (got - want).abs()
+    assert bool((err <= 2.0 ** -7 * (p @ v.float().abs())).all()), float(err.max())
+    assert _rel(got, want) <= 2.0 ** -7
+    with pytest.raises(ValueError):  # the kernel takes the max before the scale
+        flash_attention(q, k, v, scale=-0.5)
 
 
 def test_flash_attention_autograd_and_module(dev):

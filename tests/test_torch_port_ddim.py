@@ -128,7 +128,8 @@ def test_fused_ddim_matches_jax_and_unfused(models):
         trunk_apply_fn=lambda p, xx, tt, cc: trunk.apply({"params": p}, xx, tt, cc),
         fused_mode="pallas", fused_interpret=True))
 
-    pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2")
+    pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2",
+                                  device="cpu")
     tcond = {k: torch.from_numpy(v) for k, v in cond.items()}
     got = pd.ddim_sample(x.shape, tcond, sampling_timesteps=STEPS, eta=0.0,
                          init_noise=torch.from_numpy(x), trunk_fn=_trunk_fn(port))
@@ -145,7 +146,7 @@ def test_fused_ddim_with_eta_draws_as_the_unfused(models):
     _, _, port = models
     x, cond = _inputs(4)
     pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2",
-                                  ddim_sampling_eta=1.0)
+                                  ddim_sampling_eta=1.0, device="cpu")
     tcond = {k: torch.from_numpy(v) for k, v in cond.items()}
     got, unfused = (pd.ddim_sample(x.shape, tcond, sampling_timesteps=3,
                                    generator=torch.Generator().manual_seed(9), trunk_fn=fn)
@@ -157,7 +158,7 @@ def test_fused_ddim_with_eta_draws_as_the_unfused(models):
 def test_fused_ddim_is_pred_v_only(models, objective):
     _, _, port = models
     pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2",
-                                  objective=objective)
+                                  objective=objective, device="cpu")
     with pytest.raises(ValueError, match="pred_v"):
         pd.ddim_sample((B, S, S, 4), None, sampling_timesteps=2, trunk_fn=_trunk_fn(port))
 
@@ -179,7 +180,7 @@ def test_trainer_sampler_takes_the_fused_tail(models, monkeypatch, objective, fu
     trainer.args = argparse.Namespace(crop_size=S, sampler="ddim")
     trainer.diffusion = GaussianDiffusion.create(port, image_size=S, timesteps=T,
                                                  beta_schedule="sigmoid2", objective=objective,
-                                                 sampling_timesteps=2)
+                                                 sampling_timesteps=2, device="cpu")
     x, cond = _inputs()
     out = trainer.sampler(B)({k: torch.from_numpy(v) for k, v in cond.items()},
                              torch.Generator().manual_seed(0))

@@ -85,7 +85,8 @@ def _samplers(models, steps):
     _, params, apply, port = models
     jd = JaxDiffusion.create(lambda p, xx, tt, cc: apply(p, xx, tt, cc), image_size=S,
                              timesteps=T, beta_schedule="sigmoid2")
-    pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2")
+    pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2",
+                                  device="cpu")
     return params, jd, pd
 
 
@@ -121,7 +122,7 @@ def test_ddim_eta_and_ddpm_sample_shapes():
         return 0.5 * x
 
     pd = GaussianDiffusion.create(model, image_size=4, timesteps=20, beta_schedule="cosine",
-                                  ddim_sampling_eta=1.0)
+                                  ddim_sampling_eta=1.0, device="cpu")
     shape = (2, 4, 4, 4)
     for fn in (lambda g: pd.ddim_sample(shape, None, sampling_timesteps=3, generator=g),
                lambda g: pd.p_sample_loop(shape, None, generator=g)):
@@ -159,7 +160,7 @@ def test_dpm_step_grid_equals_jax(name, spacing, steps):
 def test_q_posterior_matches_jax():
     jd = JaxDiffusion.create(lambda *a: None, image_size=4, timesteps=T, beta_schedule="sigmoid2")
     pd = GaussianDiffusion.create(lambda *a: None, image_size=4, timesteps=T,
-                                  beta_schedule="sigmoid2")
+                                  beta_schedule="sigmoid2", device="cpu")
     rng = np.random.default_rng(4)
     x0, xt = (rng.standard_normal((3, 4, 4, 4)).astype(np.float32) for _ in range(2))
     t = np.array([0, 17, 999], np.int32)
@@ -167,3 +168,17 @@ def test_q_posterior_matches_jax():
     got = pd.q_posterior(torch.from_numpy(x0), torch.from_numpy(xt), torch.from_numpy(t).long())
     for w, g in zip(want, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+
+
+def test_sampler_defaults_to_the_card():
+    """Built without a device, the sampler's buffers go to the card; without
+    one it raises the CLIs' error (cli.common.resolve_device) instead of
+    quietly building CPU buffers."""
+    if torch.cuda.is_available():
+        pd = GaussianDiffusion.create(lambda *a: None, image_size=4, timesteps=T,
+                                      beta_schedule="sigmoid2")
+        assert pd.device.type == "cuda" and pd.buffers["posterior_variance"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        GaussianDiffusion.create(lambda *a: None, image_size=4, timesteps=T,
+                                 beta_schedule="sigmoid2")

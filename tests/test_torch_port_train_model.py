@@ -83,7 +83,8 @@ def test_loss_and_gradients_match_jax():
     noise = np.array(jax.random.normal(jax.random.fold_in(key, 1), img.shape, jnp.float32))
 
     port = load_port(NoiseDiffNet(dim=DIM), params).train()
-    pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2")
+    pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2",
+                                  device="cpu")
     loss = pd.loss(torch.from_numpy(img), {k: torch.from_numpy(v) for k, v in cond.items()},
                    t=torch.from_numpy(t).long(), noise=torch.from_numpy(noise))
     loss.backward()
@@ -118,7 +119,8 @@ def test_p_losses_objectives_match_jax(objective):
                              beta_schedule="sigmoid2", objective=objective)
     want = float(jd.p_losses(None, key, jnp.asarray(x0), jnp.asarray(t)))
     pd = GaussianDiffusion.create(lambda x, tt, c: 0.7 * x + 0.1, image_size=4, timesteps=T,
-                                  beta_schedule="sigmoid2", objective=objective)
+                                  beta_schedule="sigmoid2", objective=objective,
+                                  device="cpu")
     got = float(pd.p_losses(torch.from_numpy(x0), torch.from_numpy(t).long(),
                             noise=torch.from_numpy(jnoise)))
     np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -25,6 +25,7 @@ from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from noisediff_tpu_torch.models import NoiseDiffNet, is_unread_parameter
 from noisediff_tpu_torch.models import blocks
 from noisediff_tpu_torch.ops.kernels import conv_wgrad, reference_conv_wgrad
+from noisediff_tpu_torch.ops.kernels.conv_wgrad import plan, reduce_slots, segments
 from noisediff_tpu_torch.weights import jax_params_to_state_dict
 
 from torch_port_util import RTOL, load_port, random_params
@@ -158,7 +159,8 @@ def test_training_step_gradients_match_jax(monkeypatch):
         if isinstance(m, blocks.Conv2d):
             m.register_forward_pre_hook(
                 lambda mod, args: routed.append(mod) if mod.wgrad_route(args[0]) else None)
-    pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2")
+    pd = GaussianDiffusion.create(port, image_size=S, timesteps=T, beta_schedule="sigmoid2",
+                                  device="cpu")
     loss = pd.loss(torch.from_numpy(img), {k: torch.from_numpy(v) for k, v in cond.items()},
                    t=torch.from_numpy(t).long(), noise=torch.from_numpy(noise))
     loss.backward()
@@ -194,3 +196,59 @@ def test_reference_matches_direct_sum():
                         want[i, j] += np.outer(x[0, hh, ww], g[0, h, w])
     got = reference_conv_wgrad(torch.from_numpy(g), torch.from_numpy(x), 3, 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# the 21 conv shapes of a canonical training step on the route (B 4, dim 48;
+# chip_smoke.wgrad_conv_shapes) and the card tests' edges: (B, H, W, Ci, Co, k)
+_STEP_SHAPES = [(4, 512, 512, 48, 48, 3), (4, 512, 512, 48, 48, 1), (4, 512, 512, 96, 48, 3),
+                (4, 512, 512, 96, 48, 1), (4, 256, 256, 48, 48, 3), (4, 256, 256, 96, 96, 3),
+                (4, 256, 256, 144, 96, 3), (4, 256, 256, 144, 96, 1), (4, 256, 256, 192, 96, 3),
+                (4, 128, 128, 96, 96, 3), (4, 128, 128, 192, 192, 3), (4, 128, 128, 288, 192, 3),
+                (4, 128, 128, 288, 192, 1), (4, 128, 128, 384, 192, 3), (4, 64, 64, 192, 192, 3),
+                (4, 64, 64, 192, 384, 3), (4, 64, 64, 384, 384, 3), (4, 64, 64, 576, 384, 3),
+                (4, 64, 64, 576, 384, 1)]
+_EDGE_SHAPES = [(1, 9, 40, 48, 48, 3), (2, 13, 70, 48, 96, 3), (1, 3, 48, 576, 384, 1),
+                (1, 64, 512, 48, 48, 3), (1, 5, 70, 16, 32, 3), (2, 8, 8, 32, 64, 3)]
+
+
+@pytest.mark.parametrize("sms", [132, 7, 100000])
+@pytest.mark.parametrize("shape", _STEP_SHAPES + _EDGE_SHAPES)
+def test_wgrad_plan_covers_every_tile_once(shape, sms):
+    """The kernel's work split: every (pair, pixel tile) unit falls in
+    exactly one block's run, no block is empty, every partial has a slot of
+    its own inside the scratch, and the second pass adds, for each pair,
+    exactly the slots of that pair's segments in block order."""
+    b, h, w, ci, co, k = shape
+    p = plan(b, h, w, ci, co, k, k, sms)
+    rows, cols = p["rows"], p["cols"]
+    assert p["ctiles"] * cols >= w > (p["ctiles"] - 1) * cols
+    assert p["bands"] * rows >= h > (p["bands"] - 1) * rows
+    assert p["units"] == p["pairs"] * b * p["bands"] * p["ctiles"]
+    assert p["grid"] == min(sms, p["units"])
+    segs = segments(p)
+    covered = [u for _, _, u0, u1, _ in segs for u in range(u0, u1)]
+    assert covered == list(range(p["units"]))
+    assert sorted({blk for blk, *_ in segs}) == list(range(p["grid"]))
+    slots = [slot for *_, slot in segs]
+    assert len(set(slots)) == len(slots)
+    assert (max(slots) + 1) * k * k * 48 * 48 <= p["part_floats"]
+    for pair in range(p["pairs"]):
+        mine = [slot for _, pr, _, _, slot in segs if pr == pair]
+        assert reduce_slots(p, pair) == mine
+    if sms == 132:
+        # the partials written and read stay under the operands' bytes at
+        # the 48-channel shapes; at most (grid + pairs) tiles anywhere
+        operands = 2 * b * h * w * (ci + co)
+        if ci <= 96 and h * w >= 256 * 256:
+            assert 2 * 4 * len(segs) * k * k * 48 * 48 < operands
+
+
+def test_wgrad_plan_splits():
+    """A pair spread over every SM (one 48 -> 48 pair at 512^2), and pairs
+    that each fit one block (576 -> 384 1x1 on 3 x 48 pixels: 96 pairs of one
+    tile each)."""
+    p = plan(4, 512, 512, 48, 48, 3, 3, 132)
+    assert p["pairs"] == 1 and len(reduce_slots(p, 0)) == 132
+    p = plan(1, 3, 48, 576, 384, 1, 1, 132)
+    assert p["pairs"] == p["units"] == p["grid"] == 96
+    assert all(len(reduce_slots(p, pair)) == 1 for pair in range(96))
