@@ -13,8 +13,11 @@ Every phase runs, in this order (any failure exits non-zero):
            paths give it; CUDA-event timings of both beside the card's bound
            for the same work, and of one PyTorch call that computes the same
            function where there is one (cuDNN's wgrad, SDPA): per call, and
-           for those two kernels and their library calls on the card's
-           clock too (back-to-back calls queued behind a sleep)
+           for those two kernels, their library calls and the attn_tail
+           backward on the card's clock too (back-to-back calls queued
+           behind a sleep); the attn_tail forward and backward also at
+           ragged pixel counts (RAGGED_SHAPES), the backward bit-equal
+           across two calls
   model    the full-width (dim 48) NoiseDiffNet forward on the card, bf16
            through the kernels, against the same weights on the CPU
   profile  one model evaluation at the canonical shape: CUDA-event time and
@@ -35,7 +38,8 @@ Every phase runs, in this order (any failure exits non-zero):
            pred_v, bf16 over fp32 parameters), 1 epoch over a miniature SID
            tree made from the seed (2 pairs of 2848x4256 Bayer frames,
            rebalanced to 100 samples: 25 steps). Checks the losses, the
-           kernels' launches per step, the snapshots, and generates from
+           kernels' launches per step, the snapshots, --use_tb_logger's
+           scalars.jsonl, and generates from
            net_final.pth through the generation CLI; reports steps/s and
            samples/s over the window after the first 3 steps on the card's
            clock (loader waits and uploads included), the epoch's wall
@@ -57,8 +61,15 @@ Every phase runs, in this order (any failure exits non-zero):
            card's cuDNN-wgrad step; training through the CLI over the same
            miniature tree: steps/s beside the default run's and the
            conv_wgrad launches per step
+  fp32     --no_mixed_precision (fp32 compute, the plain route of every
+           block) through both CLIs: 2 DPM-10 batches after ddim, 2 training
+           steps (crop 128, batch 50) after train_wgrad; no kernel launches,
+           finite outputs and losses
   attention  blocks.Attention forward and backward at B 4, C 384, 64^2
            tokens (the flash_attention kernel) against the CPU in fp32
+  dim96    a dim-96 NoiseDiffNet forward on its route (the heads on their
+           plain version, the other kernels at 96..768 channels) at B 1,
+           64^2, against the CPU
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -374,6 +385,10 @@ def phase_kernels(seed: int):
     torch.cuda.empty_cache()
     results.update(kernels_training(randn))
     torch.cuda.empty_cache()
+    fwd, bwd = kernels_ragged(randn)
+    results["attn_tail"] += fwd
+    results["attn_tail_bwd"] += bwd
+    torch.cuda.empty_cache()
     results.update(kernels_ddim(randn))
     results.update(kernels_wgrad(randn, seed))
     results.update(kernels_attention(randn))
@@ -563,6 +578,105 @@ def kernels_attention(randn):
                                      max_abs_err=err)]}
 
 
+def attn_tail_args(randn, x, g=None):
+    """The attn_tail operands beside x (B, H, W, C) bf16: tok, the LN
+    affine, w1, b1, w2, b2, wp, bp, as the AttnBlock passes them; then g."""
+    import torch
+
+    c = x.shape[-1]
+    tok = randn(x.shape[0], c, scale=0.3, dtype=torch.bfloat16)
+    p = (1.0 + 0.1 * randn(c), 0.1 * randn(c), randn(2 * c, c, scale=c ** -0.5),
+         0.1 * randn(2 * c), randn(c, 2 * c, scale=(2 * c) ** -0.5), 0.1 * randn(c),
+         randn(c, c, scale=c ** -0.5), 0.1 * randn(c))
+    return (x, tok) + p + (() if g is None else (g,))
+
+
+def attn_tail_bwd_bound(x):
+    """The attn_tail backward's bound for x (B, H, W, C): x and g read, dx
+    written, the weights and vectors read, the gradients written; 30 C^2
+    FLOP per pixel on the tensor cores."""
+    b, h, w, c = x.shape
+    moved = 3 * nbytes(x) + b * c * 2 + 5 * c * c * 2 + 6 * c * 4 + b * c * 4 \
+        + (5 * c * c + 6 * c) * 4
+    return bound(moved, 30 * b * h * w * c * c, PEAK_BF16_FLOPS)
+
+
+def check_attn_tail_bwd(label, args):
+    """The attn_tail backward kernel against autograd of the plain version:
+    dx elementwise, the reduced gradients (dtok and the parameters') by
+    relative L2, and a second call bit-equal (every sum in a fixed order).
+    Returns (max abs err, {gradient: rel L2})."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import fused_attn_tail_bwd, reference_attn_tail_bwd
+
+    got, want = fused_attn_tail_bwd(*args), reference_attn_tail_bwd(*args)
+    g = args[-1]
+    compare("attn_tail_bwd dx", got[0], want[0], scale=want[0].float().abs() + g.float().abs())
+    names = ("dx", "dtok", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2", "dwp", "dbp")
+    rels = {}
+    for n, a, b in zip(names, got, want):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"attn_tail_bwd {label}: {n} is not finite or misshaped")
+        rels[n] = rel_l2(a, b)
+    worst = max(rels, key=rels.get)
+    if rels[worst] > GRAD_REL:
+        raise AssertionError(f"attn_tail_bwd {label}: rel L2 {rels}")
+    if not all(torch.equal(a, b) for a, b in zip(got, fused_attn_tail_bwd(*args))):
+        raise AssertionError(f"attn_tail_bwd {label}: two calls differ")
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    return err, rels
+
+
+# pixel counts that are not multiples of 16: the full frame's /8 stage (B 1,
+# 178 x 266 x 384), crop 504's /4 stage, the learning gate's tiny scale at /8
+RAGGED_SHAPES = [(1, 178, 266, 384), (4, 126, 126, 96), (4, 2, 2, 384)]
+
+
+def attn_tail_bound(x):
+    """The attn_tail forward's bound for x (B, H, W, C): x read, the output
+    written, the weights and vectors read; 10 C^2 FLOP per pixel."""
+    b, h, w, c = x.shape
+    moved = 2 * nbytes(x) + b * c * 2 + 5 * c * c * 2 + 6 * c * 4
+    return bound(moved, 10 * b * h * w * c * c, PEAK_BF16_FLOPS)
+
+
+def kernels_ragged(randn):
+    """The attn_tail forward and backward at RAGGED_SHAPES against their
+    plain versions, at the square shapes' tolerances; two backward calls
+    bit-equal. Their rows have calls 0: no main path gives these shapes, so
+    they add to no per-evaluation or per-step sum."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import (
+        fused_attn_tail, fused_attn_tail_bwd, reference_attn_tail, reference_attn_tail_bwd)
+
+    fwd, bwd = [], []
+    for shape in RAGGED_SHAPES:
+        x = randn(*shape, scale=1.5, dtype=torch.bfloat16) + 0.5
+        g = randn(*shape, dtype=torch.bfloat16)
+        args = attn_tail_args(randn, x, g)
+        fa = args[:-1]
+        err = compare("attn_tail", fused_attn_tail(*fa), reference_attn_tail(*fa))
+        ms = time_ms(lambda: fused_attn_tail(*fa), reps=5)
+        plain = time_ms(lambda: reference_attn_tail(*fa), reps=3)
+        b_ms, b_by = attn_tail_bound(x)
+        fwd.append(dict(shape=list(shape), calls=0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                        bound_by=b_by, max_abs_err=err))
+        berr, rels = check_attn_tail_bwd(f"{shape}", args)
+        bms = time_ms(lambda: fused_attn_tail_bwd(*args), reps=5)
+        dev_ms = time_device_ms(lambda: fused_attn_tail_bwd(*args), n=5)
+        bplain = time_ms(lambda: reference_attn_tail_bwd(*args), reps=3)
+        bb_ms, bb_by = attn_tail_bwd_bound(x)
+        bwd.append(dict(shape=list(shape), calls=0, ms=bms, device_ms=dev_ms, plain_ms=bplain,
+                        bound_ms=bb_ms, bound_by=bb_by, max_abs_err=berr, rel_l2=rels))
+        log(f"  ragged {shape}: attn_tail {ms:.4f} ms (bound {b_ms:.4f}), max abs err "
+            f"{err:.3g}; backward {bms:.4f} ms, dev {dev_ms:.4f} (bound {bb_ms:.4f}), worst "
+            f"rel L2 {max(rels.values()):.3g}, bit-equal across two calls")
+        del x, g, args, fa
+    return fwd, bwd
+
+
 def kernels_training(randn):
     """The training path's kernels at the canonical training shapes: gn_stats
     and gn_grad_stats at the four stages, the attn_tail backward at the four
@@ -572,6 +686,20 @@ def kernels_training(randn):
     from noisediff_tpu_torch.ops.kernels import (
         fused_attn_tail_bwd, gn_grad_stats, gn_stats, reference_attn_tail_bwd,
         reference_gn_grad_stats, reference_gn_stats)
+
+    from noisediff_tpu_torch.ops.kernels import _build
+    from noisediff_tpu_torch.ops.kernels import attn_tail as at
+
+    # the host plan's copy of the fused backward's shared-memory layout
+    lib = _build.library("attn_tail_bwd", at._BWD_SIGNATURES)
+    for c in at.FUSED_WIDTHS:
+        if lib.nd_attn_tail_bwd_smem(c) != at.bwd_smem_bytes(c):
+            raise AssertionError(f"attn_tail backward C={c}: the kernel takes "
+                                 f"{lib.nd_attn_tail_bwd_smem(c)} bytes of shared memory, the "
+                                 f"plan counts {at.bwd_smem_bytes(c)}")
+    log(f"  attn_tail backward fused route: shared memory "
+        f"{ {c: at.bwd_smem_bytes(c) for c in at.FUSED_WIDTHS} } bytes (kernel = plan), "
+        f"{ {c: lib.nd_attn_tail_bwd_occupancy(c) for c in at.FUSED_WIDTHS} } blocks per SM")
 
     results = {"gn_stats": [], "gn_grad_stats": [], "attn_tail_bwd": []}
     for st, (res, c) in enumerate(STAGES):
@@ -595,40 +723,20 @@ def kernels_training(randn):
             log(f"  {name} {res}^2 x {c}: {ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.4f} "
                 f"{b_by}), max abs err {err:.3g}")
 
-        tok = randn(BATCH, c, scale=0.3, dtype=torch.bfloat16)
-        p = (1.0 + 0.1 * randn(c), 0.1 * randn(c), randn(2 * c, c, scale=c ** -0.5),
-             0.1 * randn(2 * c), randn(c, 2 * c, scale=(2 * c) ** -0.5), 0.1 * randn(c),
-             randn(c, c, scale=c ** -0.5), 0.1 * randn(c))
-        args = (x, tok) + p + (g,)
-        got, want = fused_attn_tail_bwd(*args), reference_attn_tail_bwd(*args)
-        # dx elementwise; the reduced gradients (dtok and the parameters') by
-        # relative L2
-        compare("attn_tail_bwd dx", got[0], want[0], scale=want[0].float().abs() + g.float().abs())
-        names = ("dx", "dtok", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2", "dwp", "dbp")
-        rels = {}
-        for n, a, b in zip(names, got, want):
-            if not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"attn_tail_bwd {res}^2 x {c}: {n} is not finite")
-            rels[n] = rel_l2(a, b)
+        args = attn_tail_args(randn, x, g)
+        err, rels = check_attn_tail_bwd(f"{res}^2 x {c}", args)
         worst = max(rels, key=rels.get)
-        if rels[worst] > GRAD_REL:
-            raise AssertionError(f"attn_tail_bwd {res}^2 x {c}: rel L2 {rels}")
-        # every sum runs in a fixed order: a second call gives the same bits
-        if not all(torch.equal(a, b) for a, b in zip(got, fused_attn_tail_bwd(*args))):
-            raise AssertionError(f"attn_tail_bwd {res}^2 x {c}: two calls differ")
-        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
         ms = time_ms(lambda: fused_attn_tail_bwd(*args), reps=10)
+        dev_ms = time_device_ms(lambda: fused_attn_tail_bwd(*args), n=10)
         plain = time_ms(lambda: reference_attn_tail_bwd(*args), reps=3)
-        pix = BATCH * res * res
-        moved = 3 * nbytes(x) + nbytes(tok) + 5 * c * c * 2 + 6 * c * 4 + BATCH * c * 4 \
-            + (5 * c * c + 6 * c) * 4
-        b_ms, b_by = bound(moved, 30 * pix * c * c, PEAK_BF16_FLOPS)
+        b_ms, b_by = attn_tail_bwd_bound(x)
         results["attn_tail_bwd"].append(dict(
-            shape=[BATCH, res, res, c], calls=ATTN_PER_EVAL[st], ms=ms, plain_ms=plain,
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_l2=rels))
-        log(f"  attn_tail_bwd {res}^2 x {c}: {ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.4f} "
-            f"{b_by}), worst rel L2 {rels[worst]:.3g} ({worst}), max abs err {err:.3g}")
-        del x, g, args, got, want
+            shape=[BATCH, res, res, c], calls=ATTN_PER_EVAL[st], ms=ms, device_ms=dev_ms,
+            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_l2=rels))
+        log(f"  attn_tail_bwd {res}^2 x {c}: {ms:.4f} ms, dev {dev_ms:.4f} (plain {plain:.4f}, "
+            f"bound {b_ms:.4f} {b_by}), worst rel L2 {rels[worst]:.3g} ({worst}), "
+            f"max abs err {err:.3g}")
+        del x, g, args
     return results
 
 
@@ -674,7 +782,8 @@ def phase_model(seed: int):
 def _category(name: str) -> str:
     if "conv_wgrad" in name:
         return "conv_wgrad kernel"
-    if "attn_tail_bwd" in name or "wgrad_partial" in name or "sum_splits" in name:
+    if any(k in name for k in ("attn_tail_bwd", "gemm_rows", "ln_rows", "ln_bwd_rows",
+                                "wgrad_gemm", "reduce_tiled", "reduce_fused")):
         return "attn_tail backward kernel"
     if "attn_tail" in name:
         return "attn_tail kernel"
@@ -967,6 +1076,13 @@ def phase_train(seed: int, workdir: str):
     make_train_tree(workdir, seed)
     res = train_cli(seed, workdir, "train", TRAIN_PER_STEP, "train")
     out = res["out"]
+    # --use_tb_logger: the loss and LR at step 0 (--vis_step_freq 100)
+    with open(os.path.join(out, "train_diffusion", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [(r["tag"], r["step"]) for r in rows] != [("diffusion_loss", 0), ("lr", 0)] or not all(
+            np.isfinite(r["value"]) for r in rows):
+        raise AssertionError(f"--use_tb_logger wrote {rows}")
+    log(f"  scalars.jsonl: {[(r['tag'], r['step'], round(r['value'], 6)) for r in rows]}")
     snap = os.path.join(out, "train_diffusion", "snapshot")
     for comp in ("net", "ema"):
         sd = torch.load(os.path.join(snap, f"{comp}_final.pth"), map_location="cpu",
@@ -984,6 +1100,76 @@ def phase_train(seed: int, workdir: str):
         raise AssertionError(f"generation from net_final.pth: {g}")
     log(f"  generated {len(files)} patches from net_final.pth through the generation CLI")
     return res
+
+
+def phase_fp32_train(seed: int, workdir: str):
+    """--no_mixed_precision (fp32 compute) through the training CLI over the
+    tree in workdir: 2 steps (crop 128, batch 50), the plain route, so no
+    kernel launches; finite losses."""
+    import numpy as np
+
+    from noisediff_tpu_torch.cli import train_diffusion
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    argv = [
+        "--save_epoch_freq", "1", "--generation_result", "noise", "--name", "train_diffusion",
+        "--net_name", "NoiseDiffNet", "--beta_schedule", "sigmoid2", "--positional_encoding",
+        "--trainset", "SonyTrainDataset", "--dim", str(DIM), "--crop_size", "128",
+        "--with_camera_settings", "--batch_size", "50", "--max_iter", "1",
+        "--random_seed", str(seed), "--device", "cuda", "--num_workers", "4",
+        "--no_mixed_precision", "--sid_folder", os.path.join(workdir, "SID"),
+        "--save_folder", os.path.join(workdir, "fp32"),
+    ]
+    reset_launch_counts()
+    summary = train_diffusion.main(argv)
+    counts = launch_counts()
+    if summary["steps"] != 2 or not all(np.isfinite(summary["losses"])):
+        raise AssertionError(f"fp32 training: {summary['steps']} steps, {summary['losses']}")
+    if any(counts.values()):
+        raise AssertionError(f"fp32 training launched kernels: {counts}")
+    log(f"  2 fp32 steps, losses {summary['losses']}, no kernel launched")
+    return {"losses": summary["losses"], "counts": counts}
+
+
+def phase_dim96(seed: int):
+    """A NoiseDiffNet at --dim 96, bf16, one forward on the card on its route
+    (the heads, built for C <= 64, on their plain version; attn_tail and
+    groupnorm_silu at 96..768 channels) against the same weights on the CPU."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.manual_seed(seed)
+    cpu = NoiseDiffNet(dim=96, dtype=torch.bfloat16).eval()
+    card = NoiseDiffNet(dim=96, dtype=torch.bfloat16)
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().to(memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(seed)
+    b, s = 1, 64
+    x = torch.from_numpy(rng.standard_normal((b, s, s, 4)).astype(np.float32))
+    cond = {"clean_img": torch.from_numpy(rng.uniform(0, 0.3, (b, s, s, 4)).astype(np.float32)),
+            "position": torch.from_numpy(rng.uniform(0, 1, (b, s, s, 2)).astype(np.float32)),
+            "iso_ratio_idx": torch.tensor([24])}
+    t = torch.tensor([421])
+    with torch.inference_mode():
+        want = cpu(x, t, cond).float()
+        reset_launch_counts()
+        got = card(x.cuda(), t.cuda(), {k: v.cuda() for k, v in cond.items()}).float().cpu()
+        counts = launch_counts()
+    if got.shape != (b, s, s, 4) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"dim-96 forward: shape {tuple(got.shape)} or not finite")
+    rel = rel_l2(got, want)
+    want_counts = {"fused_attn_tail": 9, "fused_dual_head": 0}
+    if any(counts[k] != v for k, v in want_counts.items()) or not counts[
+            "fused_groupnorm_film_silu"]:
+        raise AssertionError(f"dim-96 forward launches: {counts}")
+    log(f"  dim-96 forward {b}x{s}x{s}: card bf16 vs CPU bf16 rel L2 {rel:.4g}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if rel > 5e-2:
+        raise AssertionError(f"dim-96 card forward disagrees with the CPU: rel L2 {rel}")
+    return {"rel_l2": rel, "counts": counts}
 
 
 def phase_train_wgrad(seed: int, workdir: str, routed_per_step: int, default_rate: float):
@@ -1014,7 +1200,7 @@ def phase_attention(seed: int):
     b, c, h, w = ATTN_SHAPE
     torch.manual_seed(seed)
     cpu = Attention(c)
-    card = Attention(c)
+    card = Attention(c, dtype=torch.bfloat16)  # the bf16 route runs the flash kernel
     card.load_state_dict(cpu.state_dict())
     dev = torch.device("cuda")
     card = card.to(dev)
@@ -1337,6 +1523,11 @@ def phase_ddim(seed: int, workdir: str, ckpt: str):
 
 
 # ---------------------------------------------------------------------------
+# every kernel wrapper's name, as launch_counts() keys them
+KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
+                   "fused_dual_head", "fused_ddim_head_update", "gn_stats", "gn_grad_stats",
+                   "conv_wgrad", "flash_attention")
+
 KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is summed over)
     "attn_tail": ("fused_attn_tail", "noisediff_tpu_torch/csrc/attn_tail.cu",
                   "noisediff_tpu/ops/pallas/attn_tail.py:190", "evaluation"),
@@ -1345,7 +1536,7 @@ KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is 
                        "noisediff_tpu/ops/pallas/groupnorm_silu.py:105", "evaluation"),
     "dual_head": ("fused_dual_head", "noisediff_tpu_torch/csrc/dual_head.cu",
                   "noisediff_tpu/ops/pallas/dual_head.py:77", "evaluation"),
-    "attn_tail_bwd": ("fused_attn_tail_bwd", "noisediff_tpu_torch/csrc/attn_tail.cu",
+    "attn_tail_bwd": ("fused_attn_tail_bwd", "noisediff_tpu_torch/csrc/attn_tail_bwd.cu",
                       "noisediff_tpu/ops/pallas/attn_tail.py:307", "training step"),
     "gn_stats": ("gn_stats", "noisediff_tpu_torch/csrc/gn_stats.cu",
                  "noisediff_tpu/ops/pallas/gn_stats.py:64", "training step"),
@@ -1427,7 +1618,9 @@ def main(argv=None) -> int:
     log(f"[build] {len(build_logs)} kernel libraries built in {time.time() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if "Compiling entry function" in line:  # the kernel the next lines are about
+                log(f"  {name}: {line.split(chr(39))[1][:110]}")
+            elif "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
     sass = flash_sass_counts(_build._lib_path("flash_attention"), _build._nvcc())
     log("  flash_attention D=32 main loop, SASS instructions per score element: "
@@ -1447,6 +1640,11 @@ def main(argv=None) -> int:
         gen = phase_main(args.seed, workdir, ckpt)
         log("[ddim] DDIM-100 generation through the CLI, the fused DDIM tail")
         ddim = phase_ddim(args.seed, workdir, ckpt)
+        log("[fp32] DPM-10 generation through the CLI with --no_mixed_precision")
+        run_generation(gen_argv(workdir, ckpt, args.seed, "fp32",
+                                ["--sampler", "dpm", "--no_mixed_precision"]),
+                       {k: 0 for k in KERNEL_WRAPPERS}, "fp32 generation")
+        log(f"  {N_BATCHES} batches of {BATCH} patches, fp32, no kernel launched")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("[train_check] full-width training step, card vs CPU")
@@ -1457,12 +1655,16 @@ def main(argv=None) -> int:
         train = phase_train(args.seed, workdir)
         log("[train_wgrad] training through the CLI on the conv_wgrad route")
         wgrad = phase_train_wgrad(args.seed, workdir, routed_per_step, train["steps_per_s"])
+        log("[fp32] training through the CLI with --no_mixed_precision")
+        phase_fp32_train(args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("[train profile] where a training step spends its time")
     phase_train_profile(args.seed, train["period_ms"])
     log("[attention] blocks.Attention forward and backward, card vs CPU")
     attn = phase_attention(args.seed)
+    log("[dim96] a dim-96 NoiseDiffNet forward on its route, card vs CPU")
+    phase_dim96(args.seed)
     log(f"[done] {time.time() - t_start:.1f} s")
 
     gc, tc, steps = gen["counts"], train["counts"], train["steps"]

@@ -127,19 +127,6 @@ __global__ void channel_partial_sums(const bf16* __restrict__ a, const bf16* __r
   }
 }
 
-// out[i] = sum_k part[k][i] for k = 0 .. S-1 in that order: the fixed-order
-// second pass of attn_tail.cu's split-K weight gradients. part (S, n), out
-// (n,), fp32.
-__global__ void sum_splits(const float* __restrict__ part, float* __restrict__ out, int S,
-                           long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    float s = 0.0f;
-    for (int k = 0; k < S; ++k) s += part[(size_t)k * n + i];
-    out[i] = s;
-  }
-}
-
 #define ND_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Each library is one translation unit, so each carries its own copy.

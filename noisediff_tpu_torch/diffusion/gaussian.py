@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from ..cli.common import resolve_device
-from ..ops.kernels.ddim_head import ddim_step_scalars, fused_ddim_head_update
+from ..ops.kernels.ddim_head import (
+    ddim_step_scalars, fused_ddim_head_update, reference_ddim_head_update)
 from ..ops.schedules import DiffusionSchedule, make_schedule
 
 Condition = Optional[Dict[str, torch.Tensor]]
@@ -268,7 +269,8 @@ class GaussianDiffusion:
         the fused tail (ops/kernels/ddim_head.py): the dual head, the pred_v
         clip and rederive and the DDIM update in one pass
         (gaussian.py:380-430 of the JAX package). It implements pred_v
-        only."""
+        only. The tail is the ddim_head kernel where the model's head runs
+        its kernel (`NoiseDiffNet.head_kernel`), else its plain version."""
         if trunk_fn is not None and self.objective != "pred_v":
             raise ValueError("fused DDIM tail implements the pred_v objective only")
         total = self.num_timesteps
@@ -282,6 +284,8 @@ class GaussianDiffusion:
         ac = self.schedule.alphas_cumprod  # float32, as the JAX scan reads it
         one = np.float32(1.0)
         x = self._init(shape, generator, init_noise)
+        tail = (fused_ddim_head_update if getattr(self.model_fn, "head_kernel", True)
+                else reference_ddim_head_update)
         for t, t_next in pairs:
             alpha = ac[t]
             # terminal step: alpha_next = 1 reduces the update to x = x_start
@@ -295,8 +299,8 @@ class GaussianDiffusion:
                      if float(eta) != 0.0 else None)
             if trunk_fn is not None:
                 h, shot, shot_res, head = trunk_fn(x, tb, condition)
-                x = fused_ddim_head_update(h, shot, shot_res, x, noise, *head,
-                                           ddim_step_scalars(alpha, alpha_next, sigma, c))
+                x = tail(h, shot, shot_res, x, noise, *head,
+                         ddim_step_scalars(alpha, alpha_next, sigma, c))
                 continue
             pred_noise, x_start = self.model_predictions(
                 x, tb, condition, clip_x_start=True, rederive_pred_noise=True)

@@ -12,6 +12,15 @@ row-major (pixels, C) matrix through `.permute(0, 2, 3, 1)`, a view.
 Parameters stay fp32 and are cast to the activation dtype where they are
 used, as the JAX modules do.
 
+Every block that holds a kernel decides once, at construction, whether it
+runs the kernel or the kernel's plain version (`runs_kernel`, the port's
+`_fused_kernel_ok`): the kernels are built for the bf16 compute dtype, so a
+model of any other dtype (`dtype=None` is fp32, the reference-faithful
+`--no_mixed_precision` mode) runs every block on its plain version, on the
+card as on the CPU; a bf16 block runs its kernel where its channel width is
+one the kernel takes. The kernels take every pixel count. A wrapper given
+a CUDA tensor launches its kernel or raises; nothing falls back per call.
+
 Stride-1 SAME convolutions can take their weight gradient from the
 conv_wgrad kernel instead of cuDNN, under the JAX package's variables
 (`wgrad_kernel_on`). `RMSNorm` and `Attention` (full self-attention through
@@ -30,11 +39,38 @@ from torch import nn
 
 from ..ops.kernels import (
     conv_wgrad, flash_attention, fused_attn_tail, fused_groupnorm_film_silu, gn_grad_stats,
-    gn_stats)
+    gn_stats, reference_attn_tail, reference_flash_attention, reference_gn_grad_stats,
+    reference_gn_stats, reference_groupnorm_film_silu)
+from ..ops.kernels.attn_tail import TILED_MAX_C as ATTN_TAIL_MAX_C
 from ..ops.kernels.attn_tail import gelu
+from ..ops.kernels.dual_head import _KERNEL_WIDTHS as HEAD_WIDTHS
+from ..ops.kernels.flash_attention import _HEAD_DIMS as FLASH_HEAD_DIMS
 
 CL = torch.channels_last
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+# channel widths each kernel family takes, beside the bf16 dtype: the head
+# kernels (dual_head, ddim_head) C in HEAD_WIDTHS; attn_tail (forward and
+# backward) C % 16 == 0 up to ATTN_TAIL_MAX_C;
+# the GroupNorm kernels (groupnorm_silu, gn_stats, gn_grad_stats)
+# C % 8 == 0 up to 1024; flash_attention a head width in FLASH_HEAD_DIMS
+_WIDTH_OK = {
+    "attn_tail": lambda c: c % 16 == 0 and c <= ATTN_TAIL_MAX_C,
+    "heads": lambda c: c in HEAD_WIDTHS,
+    "groupnorm": lambda c: c % 8 == 0 and c <= 1024,
+    "flash": lambda c: c in FLASH_HEAD_DIMS,
+}
+
+
+def runs_kernel(kernel: str, dtype: Optional[torch.dtype], channels: int) -> bool:
+    """Whether a block of compute dtype `dtype` (None: fp32) whose kernel
+    family `kernel` ('attn_tail', 'heads', 'groupnorm', 'flash') sees
+    `channels` channels (head width for 'flash') runs the kernel, or else
+    its plain version. The rule: bf16, and a width the kernel takes. It is
+    the port's `_fused_kernel_ok` (blocks.py of the JAX package), which
+    also keeps fp32 off every kernel; the JAX size floor is not carried
+    over, since the kernels here take any pixel count."""
+    return dtype == torch.bfloat16 and _WIDTH_OK[kernel](channels)
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -224,9 +260,9 @@ class _GNCoeffs(torch.autograd.Function):
     activation-sized fp32 chain. x: (B, H, W, C)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, groups, eps):
+    def forward(ctx, x, scale, bias, groups, eps, stats):
         b, h, w, c = x.shape
-        s_c, sq_c = gn_stats(x)
+        s_c, sq_c = stats(x)
         ctx.groups, ctx.eps, ctx.cnt = groups, eps, h * w * (c // groups)
         ctx.save_for_backward(x, scale, s_c, sq_c)
         mean_c, inv_c, _, _ = _group_stats(s_c, sq_c, groups, ctx.cnt, eps)
@@ -253,16 +289,18 @@ class _GNCoeffs(torch.autograd.Function):
         dsq_c = (dvar_g / cnt).repeat_interleave(per, dim=1)
         dt = x.dtype
         dx = x * (2.0 * dsq_c)[:, None, None, :].to(dt) + ds_c[:, None, None, :].to(dt)
-        return dx, dscale, dbias, None, None
+        return dx, dscale, dbias, None, None, None
 
 
 class _GNApply(torch.autograd.Function):
     """y = x * a + bb with fp32 (B, C) coefficients cast to x's dtype
     (blocks._gn_apply of the JAX package). Backward: (dbb, da) =
-    gn_grad_stats(g, x) and dx = g * a. x: (B, H, W, C)."""
+    grad_stats(g, x) (gn_grad_stats or its plain version) and dx = g * a.
+    x: (B, H, W, C)."""
 
     @staticmethod
-    def forward(ctx, x, a, bb):
+    def forward(ctx, x, a, bb, grad_stats):
+        ctx.grad_stats = grad_stats
         ctx.save_for_backward(x, a)
         dt = x.dtype
         return x * a[:, None, None, :].to(dt) + bb[:, None, None, :].to(dt)
@@ -271,8 +309,8 @@ class _GNApply(torch.autograd.Function):
     def backward(ctx, g):
         x, a = ctx.saved_tensors
         g = g.contiguous()
-        dbb, da = gn_grad_stats(g, x)
-        return g * a[:, None, None, :].to(g.dtype), da, dbb
+        dbb, da = ctx.grad_stats(g, x)
+        return g * a[:, None, None, :].to(g.dtype), da, dbb, None
 
 
 def _film_fold(a, bb, scale_shift):
@@ -294,12 +332,16 @@ class GroupNorm(nn.Module):
     x's dtype with the gn_grad_stats backward; then a per-pixel FiLM
     (ResnetBlock2's maps) and SiLU as plain torch ops. Evaluation: a FiLM
     that is absent or per-sample goes through the groupnorm_silu kernel; a
-    per-pixel FiLM stays in plain torch, as in the JAX package."""
+    per-pixel FiLM stays in plain torch, as in the JAX package. Where
+    `runs_kernel('groupnorm', dtype, channels)` is false, both routes call
+    the kernels' plain versions."""
 
-    def __init__(self, channels: int, groups: int, eps: float = 1e-5):
+    def __init__(self, channels: int, groups: int, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.groups = groups
         self.eps = eps
+        self.kernels = runs_kernel("groupnorm", dtype, channels)
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -314,16 +356,19 @@ class GroupNorm(nn.Module):
         if scale_shift is not None:
             fs = scale_shift[0].reshape(b, c).float()
             fsh = scale_shift[1].reshape(b, c).float()
-        y = fused_groupnorm_film_silu(to_nhwc(x).view(b, h * w, c), self.weight, self.bias,
-                                      fs, fsh, self.groups, self.eps)
+        fn = fused_groupnorm_film_silu if self.kernels else reference_groupnorm_film_silu
+        y = fn(to_nhwc(x).view(b, h * w, c), self.weight, self.bias, fs, fsh, self.groups,
+               self.eps)
         return to_nchw(y.view(b, h, w, c))
 
     def _train_forward(self, x, scale_shift, per_pixel: bool):
         xh = to_nhwc(x)
-        a, bb = _GNCoeffs.apply(xh, self.weight, self.bias, self.groups, self.eps)
+        stats, grad_stats = ((gn_stats, gn_grad_stats) if self.kernels
+                             else (reference_gn_stats, reference_gn_grad_stats))
+        a, bb = _GNCoeffs.apply(xh, self.weight, self.bias, self.groups, self.eps, stats)
         if scale_shift is not None and not per_pixel:
             a, bb = _film_fold(a, bb, scale_shift)
-        y = to_nchw(_GNApply.apply(xh, a, bb))
+        y = to_nchw(_GNApply.apply(xh, a, bb, grad_stats))
         if per_pixel:
             s, sh = scale_shift
             y = y * (s + 1.0) + sh
@@ -346,10 +391,11 @@ class GroupNorm(nn.Module):
 class Block(nn.Module):
     """conv3x3 -> GroupNorm -> (optional FiLM) -> SiLU (:128-144)."""
 
-    def __init__(self, dim_in: int, dim_out: int, groups: int = 8):
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.proj = Conv2d(dim_in, dim_out, 3)
-        self.norm = GroupNorm(dim_out, groups)
+        self.norm = GroupNorm(dim_out, groups, dtype=dtype)
 
     def forward(self, x, scale_shift=None):
         return self.norm(self.proj(x), scale_shift)
@@ -362,12 +408,12 @@ class ResnetBlock(nn.Module):
     ignored and Block is always 3x3, so `shot_time` runs 3x3 convs too."""
 
     def __init__(self, dim_in: int, dim_out: int, time_emb_dim: Optional[int] = None,
-                 groups: int = 8):
+                 groups: int = 8, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.mlp = (nn.Sequential(nn.SiLU(), Linear(time_emb_dim, dim_out * 2))
                     if time_emb_dim is not None else None)
-        self.block1 = Block(dim_in, dim_out, groups)
-        self.block2 = Block(dim_out, dim_out, groups)
+        self.block1 = Block(dim_in, dim_out, groups, dtype)
+        self.block2 = Block(dim_out, dim_out, groups, dtype)
         self.res_conv = Conv2d(dim_in, dim_out, 1) if dim_in != dim_out else nn.Identity()
 
     def forward(self, x: Tensors, time_emb=None):
@@ -386,12 +432,12 @@ class ResnetBlock2(nn.Module):
     (:173-196): SiLU -> 1x1 conv (pos_dim -> 2 dim_out)."""
 
     def __init__(self, dim_in: int, dim_out: int, pos_emb_dim: Optional[int] = None,
-                 groups: int = 8):
+                 groups: int = 8, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.mlp = (nn.Sequential(nn.SiLU(), Conv2d(pos_emb_dim, dim_out * 2, 1))
                     if pos_emb_dim is not None else None)
-        self.block1 = Block(dim_in, dim_out, groups)
-        self.block2 = Block(dim_out, dim_out, groups)
+        self.block1 = Block(dim_in, dim_out, groups, dtype)
+        self.block2 = Block(dim_out, dim_out, groups, dtype)
         self.res_conv = Conv2d(dim_in, dim_out, 1) if dim_in != dim_out else nn.Identity()
 
     def forward(self, x, pos_emb=None):
@@ -439,10 +485,13 @@ class FeedForward(nn.Module):
 class AttnBlock(nn.Module):
     """LN -> cross-attn (+res) -> LN -> FF (+res) -> 1x1 proj, + outer
     residual (:425-443). With a one-token context the whole block after the
-    token is the attn_tail kernel's chain."""
+    token is the attn_tail kernel's chain, or its plain version where
+    `runs_kernel('attn_tail', dtype, dim)` is false."""
 
-    def __init__(self, dim: int, context_dim: int = 16, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, context_dim: int = 16, heads: int = 4, dim_head: int = 32,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.kernel = runs_kernel("attn_tail", dtype, dim)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = CrossAttention(dim, context_dim, heads, dim_head)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -452,7 +501,8 @@ class AttnBlock(nn.Module):
     def forward(self, x, context):
         tok = self.attn.token(context.to(x.dtype))
         ff1, ff2 = self.ff.net[0][0], self.ff.net[2]
-        out = fused_attn_tail(
+        tail = fused_attn_tail if self.kernel else reference_attn_tail
+        out = tail(
             to_nhwc(x), tok, self.norm2.weight, self.norm2.bias, ff1.weight, ff1.bias,
             ff2.weight, ff2.bias, self.proj_out.weight[:, :, 0, 0], self.proj_out.bias,
             self.norm2.eps,
@@ -479,12 +529,15 @@ class RMSNorm(nn.Module):
 class Attention(nn.Module):
     """Full self-attention over the pixels (:237-266): RMSNorm, a 1x1 qkv
     conv, softmax attention per head, a 1x1 output conv (blocks.Attention of
-    the JAX package). The attention is the flash_attention kernel on the
-    card at every token count; the channels of qkv are (3, heads, dim_head)
-    as in the reference."""
+    the JAX package). The attention is the flash_attention kernel at every
+    token count where `runs_kernel('flash', dtype, dim_head)`, else its
+    plain version; the channels of qkv are (3, heads, dim_head) as in the
+    reference."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.kernel = runs_kernel("flash", dtype, dim_head)
         self.heads = heads
         self.dim_head = dim_head
         hidden = heads * dim_head
@@ -496,7 +549,8 @@ class Attention(nn.Module):
         b, _, h, w = x.shape
         qkv = to_nhwc(self.to_qkv(self.norm(x))).view(b, h * w, 3, self.heads, self.dim_head)
         q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))  # (B, H, N, D)
-        out = flash_attention(q, k, v).transpose(1, 2).reshape(b, h, w, -1)
+        attend = flash_attention if self.kernel else reference_flash_attention
+        out = attend(q, k, v).transpose(1, 2).reshape(b, h, w, -1)
         return self.to_out(to_nchw(out))
 
 

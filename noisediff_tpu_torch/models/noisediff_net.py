@@ -4,7 +4,10 @@ Port of noisediff_tpu/models/noisediff_net.py (reference
 `models/archs/Diffusion_arch.py:447-646`), the unfolded graph. The TPU
 lowerings of the JAX model (width fold, packed heads, int8) compute the
 same math and are not carried over. The output head is the dual_head
-kernel.
+kernel. Each block, and the head, runs its kernel or its plain version as
+`blocks.runs_kernel` decides once from the compute dtype and its channel
+width: a bf16 model runs the kernels (at dim 48 every one), an fp32 model
+(`dtype=None`) none.
 
 4-stage UNet (dim_mults 1, 2, 4, 8): 7x7 init conv; per down stage two
 time-FiLM ResnetBlocks, an ISO cross-attention AttnBlock and a
@@ -28,7 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.kernels import fused_dual_head
+from ..ops.kernels import fused_dual_head, reference_dual_head
 from .blocks import (
     AttnBlock,
     Conv2d,
@@ -39,6 +42,7 @@ from .blocks import (
     ResnetBlock2,
     TimeMlp,
     Upsample,
+    runs_kernel,
     to_nhwc,
 )
 
@@ -68,9 +72,14 @@ class NoiseDiffNet(nn.Module):
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         g = resnet_block_groups
+        # the dual head (and the DDIM sampler's fused tail) runs its kernel
+        self.head_kernel = runs_kernel("heads", dtype, dim)
 
         def attn(c):
-            return AttnBlock(c, iso_dim, attn_heads, attn_dim_head)
+            return AttnBlock(c, iso_dim, attn_heads, attn_dim_head, dtype)
+
+        def resnet(d_in, d_out, groups=g):
+            return ResnetBlock(d_in, d_out, time_dim, groups, dtype)
 
         self.init_conv = Conv2d(channels, dim, 7)
         self.iso_embed = nn.Embedding(iso_vocab, iso_dim)
@@ -80,35 +89,35 @@ class NoiseDiffNet(nn.Module):
         for ind, (d_in, d_out) in enumerate(in_out):
             last = ind == len(in_out) - 1
             self.downs.append(nn.ModuleList([
-                ResnetBlock(d_in, d_in, time_dim, g),
-                ResnetBlock(d_in, d_in, time_dim, g),
+                resnet(d_in, d_in),
+                resnet(d_in, d_in),
                 attn(d_in),
                 Conv2d(d_in, d_out, 3) if last else Downsample(d_in, d_out),
             ]))
         mid = dims[-1]
-        self.mid_block1 = ResnetBlock(mid, mid, time_dim, g)
-        self.mid_block2 = ResnetBlock(mid, mid, time_dim, g)
+        self.mid_block1 = resnet(mid, mid)
+        self.mid_block2 = resnet(mid, mid)
         self.ups = nn.ModuleList()
         for ind, (d_in, d_out) in enumerate(reversed(in_out)):
             last = ind == len(in_out) - 1
             self.ups.append(nn.ModuleList([
-                ResnetBlock(d_out + d_in, d_out, time_dim, g),
-                ResnetBlock(d_out + d_in, d_out, time_dim, g),
+                resnet(d_out + d_in, d_out),
+                resnet(d_out + d_in, d_out),
                 attn(d_out),
                 Conv2d(d_out, d_in, 3) if last else Upsample(d_out, d_in),
             ]))
-        self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, g)
+        self.final_res_block = resnet(dim * 2, dim)
         self.final_conv = Conv2d(dim, channels, 1)
 
         self.pos_enc = LearnedSinusoidalPosEmb(2, pos_dim)
         self.pos_mlp = Mlp(pos_dim * 3, pos_dim * 2, pos_dim)
-        self.pos_block1 = ResnetBlock2(dim, dim, pos_dim, groups=2)
-        self.pos_block2 = ResnetBlock2(dim, dim, pos_dim, groups=2)
+        self.pos_block1 = ResnetBlock2(dim, dim, pos_dim, 2, dtype)
+        self.pos_block2 = ResnetBlock2(dim, dim, pos_dim, 2, dtype)
 
         self.shot_mlp1 = Mlp(channels * 2, dim, dim)
         self.shot_attn = attn(dim)
         self.shot_mlp2 = Mlp(dim, dim, dim)
-        self.shot_time = ResnetBlock(dim, dim, time_dim, groups=2)
+        self.shot_time = resnet(dim, dim, groups=2)
         self.shot_mlp3 = Mlp(dim, dim, channels)
 
     def trunk(self, x: torch.Tensor, time: torch.Tensor,
@@ -174,7 +183,8 @@ class NoiseDiffNet(nn.Module):
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 condition: Dict[str, torch.Tensor]) -> torch.Tensor:
         """`trunk`'s arguments; returns (B, H, W, 4) in the model dtype."""
-        out = fused_dual_head(*self.trunk(x, time, condition), *self.head_weights())
+        head = fused_dual_head if self.head_kernel else reference_dual_head
+        out = head(*self.trunk(x, time, condition), *self.head_weights())
         # the head sums in fp32; the model's output dtype is its compute
         # dtype, as in the JAX model (noisediff_net.py:350-354)
         return out.to(self.dtype or x.dtype)

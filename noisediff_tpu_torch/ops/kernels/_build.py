@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("attn_tail", "groupnorm_silu", "dual_head", "gn_stats", "conv_wgrad",
+SOURCES = ("attn_tail", "attn_tail_bwd", "groupnorm_silu", "dual_head", "gn_stats", "conv_wgrad",
            "flash_attention")
 
 NVCC_FLAGS = (

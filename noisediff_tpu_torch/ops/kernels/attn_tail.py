@@ -1,6 +1,6 @@
 """AttnBlock tail for a single-token context: hand-written Hopper kernels
-for its forward and backward (`csrc/attn_tail.cu`) and their plain PyTorch
-versions.
+for its forward (`csrc/attn_tail.cu`) and backward (`csrc/attn_tail_bwd.cu`)
+and their plain PyTorch versions.
 
 NoiseDiffNet's AttnBlocks attend to one ISO token, so the attention output
 `tok` is a per-sample vector that does not depend on x, and the block is
@@ -20,12 +20,19 @@ gradients of x, tok and all eight parameters. The plain backward,
 
 Each wrapper runs the plain version for a tensor on the CPU and its CUDA
 kernel for a tensor on the card; anything the kernel does not take raises.
-`fused_attn_tail.launches` and `fused_attn_tail_bwd.launches` count kernel
-launches.
+Both kernels take any pixel count (a ragged last tile is masked) and
+C % 16 == 0. `fused_attn_tail.launches` and `fused_attn_tail_bwd.launches`
+count kernel launches.
+
+The backward's work split is `bwd_plan`, plain Python so that the CPU
+tests hold it: pixel tiles of M rows walked by persistent blocks, and for
+the widths whose weight gradients go through device memory, the pixel
+splits of those products.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,14 +42,125 @@ from . import _build
 _SIGNATURES = {
     "nd_attn_tail": [ctypes.c_void_p] * 11
     + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
-    "nd_attn_tail_bwd_warps": [ctypes.c_int],
-    "nd_attn_tail_bwd": [ctypes.c_void_p] * 19
-    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p],
 }
-# blocks per SM the split-K weight-gradient products aim for
+_BWD_SIGNATURES = {
+    "nd_attn_tail_bwd_occupancy": [ctypes.c_int],
+    "nd_attn_tail_bwd_smem": [ctypes.c_int],
+    "nd_attn_tail_bwd_fused": [ctypes.c_void_p] * 15
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+       ctypes.c_void_p],
+    "nd_attn_tail_bwd_tiled": [ctypes.c_void_p] * 18
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+       ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p],
+}
+
+# The backward's plan; the constants mirror csrc/attn_tail_bwd.cu.
+FUSED_WIDTHS = (16, 32, 48)  # the fused route: weight gradients summed in registers
+FUSED_TILE_ROWS = 64         # its pixel tile rows
+FUSED_THREADS = 256
+TILED_MAX_C = 768            # the tiled route: 64 <= C <= 768
+_PAD = 8
+_WG_BM, _WG_BN, _WG_BK = 128, 128, 32
+_GEMM_ROWS = 128  # the products' row tile: db1 has one partial per tile
 _WGRAD_BLOCKS_PER_SM = 2
-_WGRAD_TILE = 64
+_LN_BLOCKS_PER_SM = 2
+
+
+def bwd_smem_bytes(c: int) -> int:
+    """Shared memory of the fused route's kernel (`smem_plan` in the .cu):
+    the three weights, the tile's buffers (tok2, n, u, h, g, t2, dn, d), row
+    statistics, column-sum partials, the block's running sums."""
+    m, threads = FUSED_TILE_ROWS, FUSED_THREADS
+    ldc, ld2 = c + _PAD, 2 * c + _PAD
+    o = 2 * c * ldc + c * ld2 + c * ldc + m * (5 * ldc + 3 * ld2)
+    q, q1 = min(threads // (c // 2), 8), min(threads // c, 8)
+    return 2 * o + 3 * m * 4 + (q * 5 * c + q1 * 2 * c) * 4 + 7 * c * 4
+
+
+def bwd_route(c: int) -> str:
+    """'fused' for C in FUSED_WIDTHS, 'tiled' for 64 <= C <= 768; C % 16 == 0."""
+    if c % 16 == 0 and c in FUSED_WIDTHS:
+        return "fused"
+    if c % 16 == 0 and 64 <= c <= TILED_MAX_C:
+        return "tiled"
+    raise ValueError(f"attn_tail backward kernel is built for C % 16 == 0 and C <= "
+                     f"{TILED_MAX_C}, got C={c}")
+
+
+def _splits(n: int, want: int, align: int = 1) -> Tuple[int, int]:
+    """(count, rows) splitting n rows into about `want` ranges of `rows`
+    rows, a multiple of `align`."""
+    count = max(1, min(-(-n // align), want))
+    rows = -(-n // count)
+    rows = -(-rows // align) * align
+    return -(-n // rows), rows
+
+
+def bwd_plan(b: int, hw: int, c: int, sms: int, blocks_per_sm: int = 1) -> Dict[str, object]:
+    """The backward's work split for x of (b, H, W, c), hw = H * W, on a
+    card of `sms` SMs (`blocks_per_sm`: the fused kernel's occupancy).
+
+    fused: P = b * hw pixel rows in `tiles` tiles of M rows, the last holding
+    `last_rows`; `grid` persistent blocks, block k walking the tiles of
+    `block_tiles(plan)[k]` in order; a tile across a sample boundary
+    (`tile_samples`) sums dtok per sample. Its partials are summed in block
+    order.
+    tiled: the products run over all P rows in `row_tiles` tiles of 128
+    (db1 sums per tile); the LayerNorm backward over `ln_splits` ranges of
+    `ln_rows` rows of each sample (`ln_ranges`), so no range crosses a
+    sample; the weight gradients over `splits` pixel ranges of
+    `rows_per_split` rows (`split_ranges`). Every partial is summed in
+    order."""
+    if b < 1 or hw < 1:
+        raise ValueError(f"attn_tail backward needs B, H * W >= 1, got {b}, {hw}")
+    route = bwd_route(c)
+    p = b * hw
+    plan = {"route": route, "B": b, "HW": hw, "C": c, "P": p}
+    if route == "fused":
+        m = FUSED_TILE_ROWS
+        tiles = -(-p // m)
+        plan.update(M=m, tiles=tiles, last_rows=p - (tiles - 1) * m,
+                    grid=max(1, min(tiles, sms * max(1, blocks_per_sm))),
+                    smem=bwd_smem_bytes(c))
+        return plan
+    ln_s, ln_r = _splits(hw, -(-_LN_BLOCKS_PER_SM * sms // b))
+    shapes = ((2 * c, c), (c, 2 * c), (c, c))  # dW1, dW2, dWp
+    wtiles = sum(-(-mm // _WG_BM) * -(-nn // _WG_BN) for mm, nn in shapes)
+    splits, rows = _splits(p, -(-_WGRAD_BLOCKS_PER_SM * sms // wtiles), _WG_BK)
+    plan.update(row_tiles=-(-p // _GEMM_ROWS), ln_splits=ln_s, ln_rows=ln_r,
+                wgrad_blocks=wtiles, splits=splits, rows_per_split=rows)
+    return plan
+
+
+def block_tiles(plan) -> List[Tuple[int, int]]:
+    """Fused route: [first, end) tile of each block, k T / G .. (k + 1) T / G."""
+    t, g = plan["tiles"], plan["grid"]
+    return [(k * t // g, (k + 1) * t // g) for k in range(g)]
+
+
+def tile_rows(plan, tile: int) -> Tuple[int, int]:
+    """Fused route: the pixel rows [first, end) of a tile; the last may be ragged."""
+    return tile * plan["M"], min(plan["P"], (tile + 1) * plan["M"])
+
+
+def tile_samples(plan, tile: int) -> Tuple[int, int]:
+    """Fused route: the first and last sample of a tile's rows."""
+    r0, r1 = tile_rows(plan, tile)
+    return r0 // plan["HW"], (r1 - 1) // plan["HW"]
+
+
+def split_ranges(plan) -> List[Tuple[int, int]]:
+    """Tiled route: the pixel rows of each weight-gradient split, in summation order."""
+    rows, p = plan["rows_per_split"], plan["P"]
+    return [(s * rows, min(p, (s + 1) * rows)) for s in range(plan["splits"])]
+
+
+def ln_ranges(plan) -> List[Tuple[int, int]]:
+    """Tiled route: the pixel rows of each LayerNorm-backward partial, in
+    summation order: sample by sample, each sample's splits in order."""
+    hw, count, rows = plan["HW"], plan["ln_splits"], plan["ln_rows"]
+    return [(bi * hw + k * rows, bi * hw + min(hw, (k + 1) * rows))
+            for bi in range(plan["B"]) for k in range(count)]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -96,9 +214,9 @@ def _check(x, tok, w1, w2, wp, what):
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{what} kernel takes a contiguous (B, H, W, C) tensor")
     b, h, w, c = x.shape
-    p = b * h * w
-    if c % 16 or p % 16:
-        raise ValueError(f"{what} kernel needs C and B*H*W divisible by 16, got C={c}, B*H*W={p}")
+    if c % 16 or b * h * w == 0:
+        raise ValueError(f"{what} kernel needs C % 16 == 0 and pixels, got C={c}, "
+                         f"B*H*W={b * h * w}")
     if tuple(tok.shape) != (b, c) or tuple(w1.shape) != (2 * c, c) or \
             tuple(w2.shape) != (c, 2 * c) or tuple(wp.shape) != (c, c):
         raise ValueError(f"{what} kernel: parameter shapes do not match x")
@@ -124,51 +242,59 @@ def _launch(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, eps):
     return out
 
 
+_OCCUPANCY: Dict[int, int] = {}  # fused-kernel blocks per SM, by C
+
+
 def _launch_bwd(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, g, eps):
     _check(x, tok, w1, w2, wp, "attn_tail backward")
-    b, h, w, c = x.shape
-    hw, p = h * w, b * h * w
-    if hw % 16:
-        raise ValueError(f"attn_tail backward kernel needs H*W divisible by 16, got {hw}")
     if g.shape != x.shape:
         raise ValueError(f"attn_tail backward: g {tuple(g.shape)} does not match x")
+    b, h, w, c = x.shape
+    route = bwd_route(c)
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
     args = [_build.on_device(t, dev, dt) for t, dt in (
         (tok, bf), (g, bf), (ln_scale, f32), (ln_bias, f32), (w1, bf), (b1, f32), (w2, bf),
         (b2, f32), (wp, bf))]
-    lib = _build.library("attn_tail", _SIGNATURES)
-    warps = lib.nd_attn_tail_bwd_warps(c)
-    blocks_per_sample = -(-(hw // 16) // warps)
-    # split the pixels of the weight-gradient products so that the smallest
-    # (C x C, ceil(C / 64)^2 output tiles) still fills the card
-    tiles = (-(-c // _WGRAD_TILE)) ** 2
-    splits = max(1, min(p // 16, -(-_WGRAD_BLOCKS_PER_SM * _build.sm_count(dev) // tiles)))
-    rows_per_split = -(-p // splits)
-    rows_per_split = -(-rows_per_split // 16) * 16  # each split starts on a strip
-    splits = -(-p // rows_per_split)
+    lib = _build.library("attn_tail_bwd", _BWD_SIGNATURES)
+    bps = 1
+    if route == "fused":
+        if c not in _OCCUPANCY:
+            _OCCUPANCY[c] = lib.nd_attn_tail_bwd_occupancy(c)
+        bps = _OCCUPANCY[c]
+    plan = bwd_plan(b, h * w, c, _build.sm_count(dev), bps)
+    p = plan["P"]
+
+    def scratch(n, dt=f32):
+        return torch.empty(n, device=dev, dtype=dt)
 
     dx = torch.empty_like(x)
-    vec = torch.empty(6 * c, device=dev, dtype=f32)
-    dtok = torch.empty((b, c), device=dev, dtype=f32)
-    dw1 = torch.empty((2 * c, c), device=dev, dtype=f32)
-    dw2 = torch.empty((c, 2 * c), device=dev, dtype=f32)
-    dwp = torch.empty((c, c), device=dev, dtype=f32)
-    ops = torch.empty(p * 7 * c, device=dev, dtype=bf)
-    vec_part = torch.empty(b * blocks_per_sample * 7 * c, device=dev, dtype=f32)
-    wpart = torch.empty(max(splits * 2 * c * c, b * 7 * c), device=dev, dtype=f32)
-    code = lib.nd_attn_tail_bwd(
-        _build.ptr(x), *(_build.ptr(a) for a in args),
-        *(_build.ptr(t) for t in (dx, vec, dtok, dw1, dw2, dwp, ops, vec_part, wpart)),
-        b, hw, c, blocks_per_sample, splits, rows_per_split, float(eps),
-        _build.stream_ptr(dev),
-    )
+    wout, vout = scratch(5 * c * c), scratch((6 + b) * c)
+    head = [_build.ptr(x), *(_build.ptr(a) for a in args), _build.ptr(dx)]
+    if route == "fused":
+        wpart = scratch(plan["grid"] * 5 * c * c)
+        vpart = scratch(plan["grid"] * (6 + b) * c)
+        code = lib.nd_attn_tail_bwd_fused(
+            *head, *(_build.ptr(t) for t in (wpart, vpart, wout, vout)),
+            b, h * w, c, plan["grid"], float(eps), _build.stream_ptr(dev))
+    else:
+        ops = scratch(p * 10 * c, bf)
+        stats = scratch(p * 2)
+        lpart = scratch(b * plan["ln_splits"] * 5 * c)
+        dpart = scratch(plan["row_tiles"] * 2 * c)
+        wpart = scratch(plan["splits"] * 5 * c * c)
+        code = lib.nd_attn_tail_bwd_tiled(
+            *head, *(_build.ptr(t) for t in (ops, stats, lpart, dpart, wpart, wout, vout)),
+            b, h * w, c, plan["ln_splits"], plan["ln_rows"], plan["splits"],
+            plan["rows_per_split"], float(eps), _build.stream_ptr(dev))
     _build.check(lib, code, "attn_tail backward")
     fused_attn_tail_bwd.launches += 1
-    dbp, db2, db1, dlnw, dlnb = vec.split([c, c, 2 * c, c, c])
-    return (dx, dtok.to(tok.dtype), dlnw.to(ln_scale.dtype), dlnb.to(ln_bias.dtype),
-            dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype),
-            dwp.to(wp.dtype), dbp.to(bp.dtype))
+    dw1, dw2, dwp = wout.split([2 * c * c, 2 * c * c, c * c])
+    dbp, db2, db1, dlnw, dlnb, dtok = vout.split([c, c, 2 * c, c, c, b * c])
+    return (dx, dtok.view(b, c).to(tok.dtype), dlnw.to(ln_scale.dtype),
+            dlnb.to(ln_bias.dtype), dw1.view(2 * c, c).to(w1.dtype), db1.to(b1.dtype),
+            dw2.view(c, 2 * c).to(w2.dtype), db2.to(b2.dtype), dwp.view(c, c).to(wp.dtype),
+            dbp.to(bp.dtype))
 
 
 def fused_attn_tail_bwd(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, g,

@@ -6,7 +6,10 @@ Port of noisediff_tpu/train/trainer_diffusion.py (reference
 
 `.train()` (reference :176-236): Adam with the per-epoch cosine LR, bf16
 compute over fp32 parameters, the EMA (beta .995, copy phase to call 500,
-every 20th call), logging every --log_freq steps, snapshots at
+every 20th call), logging every --log_freq steps, with --use_tb_logger the
+loss and LR every --vis_step_freq steps to `scalars.jsonl` (and
+tensorboardX) under save_folder with 'weights' replaced by 'tb_logger',
+snapshots at
 --save_epoch_freq and 'final' in the reference's .pth format
 (train/checkpoint.py). Each step draws its timesteps and noise from a
 torch.Generator seeded from (random_seed, global step), and the optimizer
@@ -40,6 +43,7 @@ from ..data.loader import TrainLoader, generation_loader
 from ..diffusion.gaussian import GaussianDiffusion, default_dpm_steps
 from ..models import define_network
 from ..ops.schedules import make_schedule
+from ..utils.logging import ScalarLogger
 from ..weights import adam_state_from_jax, load_into, load_jax_opt_npz
 from . import checkpoint as ckpt
 from .ema import HostEma
@@ -249,8 +253,11 @@ class Trainer:
         logging.info("training on %s", args.trainset)
         logging.info("%d training samples", len(self.train_dataset))
         logging.info("the init lr: %f", args.lr)
+        # the JAX trainer's scalar log (trainer_diffusion.py:319-321, :368-372);
+        # the port runs one process, rank 0
+        tb = None
         if getattr(args, "use_tb_logger", False):
-            logging.warning("--use_tb_logger: TensorBoard output is not ported yet (ROADMAP.md)")
+            tb = ScalarLogger(args.save_folder.replace("weights", "tb_logger"))
         if getattr(args, "profile", False):
             logging.warning("--profile: step traces are not ported yet (ROADMAP.md)")
         params = list(self.model.parameters())
@@ -289,6 +296,9 @@ class Trainer:
                 marks.append((start, clock.mark()))
                 unread.append(metrics["diffusion_loss"])
                 self.step += 1
+                if tb is not None and steps % args.vis_step_freq == 0:
+                    tb.add_scalar("diffusion_loss", float(metrics["diffusion_loss"]), steps)
+                    tb.add_scalar("lr", lr, steps)
                 steps += 1
                 if j % args.log_freq == 0:
                     losses += torch.stack(unread).tolist()  # waits for this step
@@ -310,6 +320,8 @@ class Trainer:
                 logging.info("Saving state, epoch: %d iter:0", epoch)
                 snapshots += [self.save_networks(n, epoch) for n in ("net", "ema", "optimizer_G")]
         snapshots += [self.save_networks(n, "final") for n in ("net", "ema")]
+        if tb is not None:
+            tb.close()
         logging.info("The training stage is over!!!")
         return {"steps": steps, "losses": losses, "snapshots": snapshots,
                 "step_seconds": step_seconds, "step_end_seconds": step_end_seconds,

@@ -18,6 +18,8 @@ keeps fp32, and every sum over pixels runs in another order. TF32 is off
 for matmuls and cuDNN convolutions (set_precision_flags), which the fp32
 check below relies on.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -410,7 +412,7 @@ def test_flash_attention_autograd_and_module(dev):
 
     torch.manual_seed(0)
     cpu = Attention(96)
-    card = Attention(96)
+    card = Attention(96, dtype=torch.bfloat16)  # the bf16 route runs the kernel
     card.load_state_dict(cpu.state_dict())
     card = card.to(dev)
     x = torch.randn(2, 96, 32, 32).contiguous(memory_format=torch.channels_last)
@@ -449,3 +451,130 @@ def test_fused_ddim_matches_unfused_on_card(dev):
     assert fused_ddim_head_update.launches == n + 4
     unfused = gd.ddim_sample(x.shape, cond, sampling_timesteps=4, init_noise=x)
     assert bool(torch.isfinite(fused).all()) and _rel(fused, unfused) < 5e-2
+
+
+# Pixel counts that are not multiples of 16: the full frame's /8 stage,
+# crop 504's /4 stage, the tiny scale's /8 stage, and odd small maps.
+RAGGED = [(1, 178, 266, 384), (4, 126, 126, 96), (4, 2, 2, 384), (1, 7, 9, 48),
+          (4, 3, 5, 48), (4, 126, 126, 48), (1, 33, 65, 384), (7, 3, 3, 48)]
+
+
+@pytest.mark.parametrize("b,h,w,c", RAGGED)
+def test_attn_tail_ragged_shapes(dev, b, h, w, c):
+    """Forward and backward at ragged pixel counts (a last tile partly
+    filled, tiles across samples); two backward calls give the same bits.
+    The backward at the square shapes' tolerances. The forward's output is
+    the bf16 sum of the proj output and x: a rounding flip of the proj
+    output is relative to |out| + |x|, which this input (x shifted and
+    scaled as a training step's) makes larger than |out| where they cancel."""
+    x = _randn(dev, b, h, w, c, scale=1.5, dtype=torch.bfloat16) + 0.5
+    tok = _randn(dev, b, c, scale=0.3, dtype=torch.bfloat16)
+    p = (1 + 0.1 * _randn(dev, c), 0.1 * _randn(dev, c, seed=1),
+         _randn(dev, 2 * c, c, scale=c ** -0.5), 0.1 * _randn(dev, 2 * c),
+         _randn(dev, c, 2 * c, scale=(2 * c) ** -0.5, seed=2), 0.1 * _randn(dev, c, seed=3),
+         _randn(dev, c, c, scale=c ** -0.5, seed=4), 0.1 * _randn(dev, c, seed=5))
+    g = _randn(dev, b, h, w, c, dtype=torch.bfloat16, seed=9)
+    out, want_out = fused_attn_tail(x, tok, *p).float(), reference_attn_tail(x, tok, *p).float()
+    assert bool(((out - want_out).abs() <= 3e-2 + 3e-2 * (want_out.abs() + x.float().abs())).all())
+    got = fused_attn_tail_bwd(x, tok, *p, g)
+    want = reference_attn_tail_bwd(x, tok, *p, g)
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape and bool(torch.isfinite(gt).all())
+        assert _rel(gt, wt) < 2e-2
+    err = (got[0].float() - want[0].float()).abs()
+    assert bool((err <= 3e-2 + 3e-2 * (want[0].float().abs() + g.float().abs())).all())
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, fused_attn_tail_bwd(x, tok, *p, g)))
+
+
+def _sid_tree(root, h_bayer, w_bayer, frames=2):
+    """A miniature SID tree: 2 ISO800 training pairs and `frames` clean frames."""
+    sid = root / "SID"
+    (sid / "Sony" / "short").mkdir(parents=True)
+    (sid / "Sony" / "long").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    lines = []
+    for i in (1, 2):
+        in_fn, gt_fn = f"{i:05d}_00_0.04s.ARW", f"{i:05d}_00_10s.ARW"
+        for sub, fn in (("short", in_fn), ("long", gt_fn)):
+            arr = rng.integers(512, 4096, size=(h_bayer, w_bayer)).astype(np.uint16)
+            np.save(sid / "Sony" / sub / (fn + ".npy"), arr)
+        lines.append(f"./Sony/short/{in_fn} ./Sony/long/{gt_fn} ISO800 F1.8")
+    for i in range(3, 3 + max(0, frames - 2)):
+        arr = rng.integers(512, 4096, size=(h_bayer, w_bayer)).astype(np.uint16)
+        np.save(sid / "Sony" / "long" / f"{i:05d}_00_10s.ARW.npy", arr)
+    (sid / "Sony_train_list.txt").write_text("\n".join(lines) + "\n")
+    return sid
+
+
+def _train_argv(sid, out, *extra):
+    return ["--name", "train_diffusion", "--net_name", "NoiseDiffNet", "--dim", "16",
+            "--crop_size", "64", "--batch_size", "50", "--max_iter", "1",
+            "--save_epoch_freq", "1", "--beta_schedule", "sigmoid2", "--positional_encoding",
+            "--with_camera_settings", "--generation_result", "noise",
+            "--trainset", "SonyTrainDataset", "--sid_folder", str(sid), "--num_workers", "2",
+            "--device", "cuda", "--log_freq", "1", "--save_folder", str(out), *extra]
+
+
+def _gen_argv(sid, ckpt, out, dim, *extra):
+    return ["--name", "ISO800_Ratio250", "--testset", "NoiseImageGenerationDataset",
+            "--net_name", "NoiseDiffNet", "--beta_schedule", "sigmoid2", "--positional_encoding",
+            "--with_camera_settings", "--save_npy", "--dim", str(dim), "--crop_size", "32",
+            "--batch_size", "64", "--sampler", "dpm", "--sampling_timesteps", "3",
+            "--iso", "800", "--ratio", "250", "--sid_folder", str(sid),
+            "--pretrained_dir", str(sid.parent), "--num_workers", "1", "--device", "cuda",
+            "--resume", str(ckpt), "--save_folder", str(out), *extra]
+
+
+def test_fp32_clis_launch_no_kernel(dev, tmp_path):
+    """--no_mixed_precision (fp32 compute, the reference-faithful mode)
+    trains 2 steps and generates a batch through both CLIs on the card, on
+    the plain route: no kernel launches."""
+    from noisediff_tpu_torch.cli import test_diffusion, train_diffusion
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    sid = _sid_tree(tmp_path, 160, 192)
+    reset_launch_counts()
+    summary = train_diffusion.main(_train_argv(sid, tmp_path / "train", "--no_mixed_precision"))
+    assert summary["steps"] == 2 and all(np.isfinite(summary["losses"]))
+    ckpt = tmp_path / "train" / "train_diffusion" / "snapshot" / "net_final.pth"
+    gen = test_diffusion.main(_gen_argv(sid, ckpt, tmp_path / "gen", 16, "--no_mixed_precision"))
+    assert gen["batches"] == 1 and gen["generated"] > 0
+    for f in os.listdir(gen["out_dir"]):
+        assert np.isfinite(np.load(os.path.join(gen["out_dir"], f))).all()
+    assert all(n == 0 for n in launch_counts().values()), launch_counts()
+
+
+def test_dim96_generation_on_card(dev, tmp_path):
+    """--dim 96: the heads are built for C <= 64, so they take their plain
+    version; the attn_tail and GroupNorm kernels run at 96..768 channels."""
+    from noisediff_tpu_torch.cli import test_diffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    sid = _sid_tree(tmp_path, 128, 128)
+    torch.manual_seed(0)
+    ckpt = tmp_path / "net96.pth"
+    torch.save(NoiseDiffNet(dim=96).state_dict(), ckpt)
+    reset_launch_counts()
+    gen = test_diffusion.main(_gen_argv(sid, ckpt, tmp_path / "gen", 96))
+    counts = launch_counts()
+    assert gen["batches"] == 1 and gen["generated"] > 0
+    for f in os.listdir(gen["out_dir"]):
+        assert np.isfinite(np.load(os.path.join(gen["out_dir"], f))).all()
+    assert counts["fused_dual_head"] == 0 and counts["fused_attn_tail"] == 9 * 3
+    assert counts["fused_groupnorm_film_silu"] > 0
+
+
+def test_tb_logger_writes_scalars_on_card(dev, tmp_path):
+    import json
+
+    from noisediff_tpu_torch.cli import train_diffusion
+
+    sid = _sid_tree(tmp_path, 160, 192)
+    train_diffusion.main(_train_argv(sid, tmp_path / "weights", "--use_tb_logger",
+                                     "--vis_step_freq", "1"))
+    path = tmp_path / "tb_logger" / "train_diffusion" / "scalars.jsonl"
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [(r["tag"], r["step"]) for r in rows] == [
+        (tag, step) for step in (0, 1) for tag in ("diffusion_loss", "lr")]
+    assert all(np.isfinite(r["value"]) for r in rows)

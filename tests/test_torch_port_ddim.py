@@ -170,11 +170,15 @@ def test_trainer_sampler_takes_the_fused_tail(models, monkeypatch, objective, fu
     _, _, port = models
     calls = []
 
-    def counting(*args):
-        calls.append(1)
-        return fused_ddim_head_update(*args)
+    def counting(real):
+        def fn(*args):
+            calls.append(1)
+            return real(*args)
+        return fn
 
-    monkeypatch.setattr(port_gaussian, "fused_ddim_head_update", counting)
+    # the fp32 model's head runs the plain tail; a bf16 one the kernel's wrapper
+    for name in ("fused_ddim_head_update", "reference_ddim_head_update"):
+        monkeypatch.setattr(port_gaussian, name, counting(getattr(port_gaussian, name)))
     trainer = Trainer.__new__(Trainer)
     trainer.model = port
     trainer.args = argparse.Namespace(crop_size=S, sampler="ddim")

@@ -117,7 +117,8 @@ def test_training_step_calls_per_model(monkeypatch):
     counting(noisediff_net, "fused_dual_head")
 
     torch.manual_seed(0)
-    model = NoiseDiffNet(dim=8).train()
+    # a bf16 model at a width every kernel takes: the route that runs them
+    model = NoiseDiffNet(dim=16, dtype=torch.bfloat16).train()
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((2, 16, 16, 4)).astype(np.float32))
     cond = {"clean_img": torch.rand(2, 16, 16, 4), "position": torch.rand(2, 16, 16, 2),
