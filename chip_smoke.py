@@ -14,10 +14,13 @@ Every phase runs, in this order (any failure exits non-zero):
            for the same work, and of one PyTorch call that computes the same
            function where there is one (cuDNN's wgrad, SDPA): per call, and
            for those two kernels, their library calls and the attn_tail
-           backward on the card's clock too (back-to-back calls queued
-           behind a sleep); the attn_tail forward and backward also at
-           ragged pixel counts (RAGGED_SHAPES), the backward bit-equal
-           across two calls
+           forward and backward on the card's clock too (back-to-back calls
+           queued behind a sleep); the attn_tail forward's plan against its
+           kernels (shared memory, occupancy), its routes at 256^2 x 96
+           and 128^2 x 192 beside the tiled one, the wrapper's host time per
+           call and the dim-96 model's widths; the attn_tail forward and backward also at
+           ragged pixel counts (RAGGED_SHAPES); both bit-equal across two
+           calls
   model    the full-width (dim 48) NoiseDiffNet forward on the card, bf16
            through the kernels, against the same weights on the CPU
   profile  one model evaluation at the canonical shape: CUDA-event time and
@@ -63,7 +66,8 @@ Every phase runs, in this order (any failure exits non-zero):
            conv_wgrad launches per step
   fp32     --no_mixed_precision (fp32 compute, the plain route of every
            block) through both CLIs: 2 DPM-10 batches after ddim, 2 training
-           steps (crop 128, batch 50) after train_wgrad; no kernel launches,
+           steps (crop 128, batch 50) after train_wgrad on the default wgrad
+           route and 2 under NOISEDIFF_WGRAD=pallas; no kernel launches,
            finite outputs and losses
   attention  blocks.Attention forward and backward at B 4, C 384, 64^2
            tokens (the flash_attention kernel) against the CPU in fp32
@@ -309,8 +313,8 @@ def phase_kernels(seed: int):
     import torch
 
     from noisediff_tpu_torch.ops.kernels import (
-        fused_attn_tail, fused_dual_head, fused_groupnorm_film_silu, reference_attn_tail,
-        reference_dual_head, reference_groupnorm_film_silu)
+        fused_dual_head, fused_groupnorm_film_silu, reference_dual_head,
+        reference_groupnorm_film_silu)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -320,27 +324,7 @@ def phase_kernels(seed: int):
 
     results = {}
 
-    # attn_tail at the four stages
-    rows = []
-    for st, (res, c) in enumerate(STAGES):
-        x = randn(BATCH, res, res, c, dtype=torch.bfloat16)
-        tok = randn(BATCH, c, scale=0.3, dtype=torch.bfloat16)
-        p = (1.0 + 0.1 * randn(c), 0.1 * randn(c), randn(2 * c, c, scale=c ** -0.5),
-             0.1 * randn(2 * c), randn(c, 2 * c, scale=(2 * c) ** -0.5), 0.1 * randn(c),
-             randn(c, c, scale=c ** -0.5), 0.1 * randn(c))
-        args = (x, tok) + p
-        err = compare("attn_tail", fused_attn_tail(*args), reference_attn_tail(*args))
-        ms = time_ms(lambda: fused_attn_tail(*args))
-        plain = time_ms(lambda: reference_attn_tail(*args), reps=5)
-        pix = BATCH * res * res
-        moved = 2 * nbytes(x) + nbytes(tok) + 5 * c * c * 2 + 6 * c * 4
-        b_ms, b_by = bound(moved, 10 * pix * c * c, PEAK_BF16_FLOPS)
-        rows.append(dict(shape=[BATCH, res, res, c], calls=ATTN_PER_EVAL[st], ms=ms,
-                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
-        log(f"  attn_tail {res}^2 x {c}: {ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.4f} "
-            f"{b_by}), max abs err {err:.3g}")
-        del x, args
-    results["attn_tail"] = rows
+    results["attn_tail"] = kernels_attn_tail(randn)
 
     # groupnorm_silu at every (stage, groups, FiLM) the path uses
     rows = []
@@ -394,6 +378,85 @@ def phase_kernels(seed: int):
     results.update(kernels_attention(randn))
     torch.cuda.empty_cache()
     return results
+
+
+def kernels_attn_tail(randn):
+    """The attn_tail forward at the four stages on its route (`fwd_plan`):
+    against the plain version, two calls bit-equal, per call and on the
+    card's clock beside the bound; the fused kernel's shared memory and
+    occupancy against the plan; at 256^2 x 96 and 128^2 x 192 the fused
+    and streamed routes beside the tiled one they were measured against;
+    the wrapper's host time per call; then the dim-96 model's widths (B 1,
+    crop 512) on their routes."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import _build, fused_attn_tail, reference_attn_tail
+    from noisediff_tpu_torch.ops.kernels import attn_tail as at
+
+    lib = _build.library("attn_tail", at._SIGNATURES)
+    widths = at.FWD_FUSED_WIDTHS + at.FWD_STREAMED_WIDTHS
+    occ = {c: lib.nd_attn_tail_occupancy(c) for c in widths}
+    for c in widths:
+        if lib.nd_attn_tail_smem(c) != at.fwd_smem_bytes(c):
+            raise AssertionError(f"attn_tail C={c}: the kernel takes {lib.nd_attn_tail_smem(c)} "
+                                 f"bytes of shared memory, the plan counts {at.fwd_smem_bytes(c)}")
+        if occ[c] < 1:
+            raise AssertionError(f"attn_tail C={c}: the fused kernel does not fit an SM")
+    log(f"  attn_tail fused and streamed routes: shared memory "
+        f"{ {c: at.fwd_smem_bytes(c) for c in widths} } bytes (kernel = plan), "
+        f"{occ} blocks per SM")
+    rows = []
+    for st, (res, c) in enumerate(STAGES):
+        x = randn(BATCH, res, res, c, dtype=torch.bfloat16)
+        args = attn_tail_args(randn, x)
+        plan = at.fwd_plan(BATCH, res * res, c, _build.sm_count(x.device), occ.get(c, 1))
+        got = fused_attn_tail(*args)
+        err = compare("attn_tail", got, reference_attn_tail(*args))
+        if not torch.equal(got, fused_attn_tail(*args)):
+            raise AssertionError(f"attn_tail {res}^2 x {c}: two calls differ")
+        ms = time_ms(lambda: fused_attn_tail(*args))
+        dev_ms = time_device_ms(lambda: fused_attn_tail(*args))
+        host_ms = host_ms_per_call(lambda: fused_attn_tail(*args))
+        plain = time_ms(lambda: reference_attn_tail(*args), reps=5)
+        b_ms, b_by = attn_tail_bound(x)
+        row = dict(shape=[BATCH, res, res, c], calls=ATTN_PER_EVAL[st], route=plan["route"],
+                   launches_per_call=plan["launches"], ms=ms, device_ms=dev_ms, host_ms=host_ms,
+                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        other = ""
+        if plan["route"] != "tiled" and c > 48:  # where the fused route was extended
+            alt = lambda: at._launch(*args, 1e-5, route="tiled")  # noqa: E731
+            compare("attn_tail", alt(), reference_attn_tail(*args))
+            row["tiled_device_ms"] = time_device_ms(alt)
+            other = f", tiled route {row['tiled_device_ms']:.4f} on the card's clock"
+        rows.append(row)
+        log(f"  attn_tail {res}^2 x {c} ({plan['route']}): {ms:.4f} ms, dev {dev_ms:.4f} "
+            f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; host {host_ms:.4f} per call; "
+            f"plain {plain:.4f}){other}, max abs err {err:.3g}, bit-equal across two calls")
+        del x, args, got
+    for res, c in [(CROP >> i, 96 << i) for i in range(4)]:
+        x = randn(1, res, res, c, dtype=torch.bfloat16)
+        args = attn_tail_args(randn, x)
+        err = compare("attn_tail", fused_attn_tail(*args), reference_attn_tail(*args))
+        log(f"  attn_tail dim-96 width 1x{res}^2 x {c} ({at.fwd_route(c)}): max abs err {err:.3g}")
+        del x, args
+    return rows
+
+
+def host_ms_per_call(fn, n: int = 50) -> float:
+    """The host's time per call with the card kept busy (the calls queued
+    behind a sleep, so none waits for the card): what the wrapper costs the
+    host, not the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~100 ms at the card's clock
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return host
 
 
 def kernels_ddim(randn):
@@ -643,9 +706,9 @@ def attn_tail_bound(x):
 
 def kernels_ragged(randn):
     """The attn_tail forward and backward at RAGGED_SHAPES against their
-    plain versions, at the square shapes' tolerances; two backward calls
-    bit-equal. Their rows have calls 0: no main path gives these shapes, so
-    they add to no per-evaluation or per-step sum."""
+    plain versions, at the square shapes' tolerances; two calls of each
+    bit-equal. Their rows have calls 0: no main path gives these
+    shapes, so they add to no per-evaluation or per-step sum."""
     import torch
 
     from noisediff_tpu_torch.ops.kernels import (
@@ -657,12 +720,16 @@ def kernels_ragged(randn):
         g = randn(*shape, dtype=torch.bfloat16)
         args = attn_tail_args(randn, x, g)
         fa = args[:-1]
-        err = compare("attn_tail", fused_attn_tail(*fa), reference_attn_tail(*fa))
+        got = fused_attn_tail(*fa)
+        err = compare("attn_tail", got, reference_attn_tail(*fa))
+        if not torch.equal(got, fused_attn_tail(*fa)):
+            raise AssertionError(f"attn_tail {shape}: two calls differ")
         ms = time_ms(lambda: fused_attn_tail(*fa), reps=5)
+        fdev_ms = time_device_ms(lambda: fused_attn_tail(*fa), n=5)
         plain = time_ms(lambda: reference_attn_tail(*fa), reps=3)
         b_ms, b_by = attn_tail_bound(x)
-        fwd.append(dict(shape=list(shape), calls=0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                        bound_by=b_by, max_abs_err=err))
+        fwd.append(dict(shape=list(shape), calls=0, ms=ms, device_ms=fdev_ms, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
         berr, rels = check_attn_tail_bwd(f"{shape}", args)
         bms = time_ms(lambda: fused_attn_tail_bwd(*args), reps=5)
         dev_ms = time_device_ms(lambda: fused_attn_tail_bwd(*args), n=5)
@@ -670,9 +737,10 @@ def kernels_ragged(randn):
         bb_ms, bb_by = attn_tail_bwd_bound(x)
         bwd.append(dict(shape=list(shape), calls=0, ms=bms, device_ms=dev_ms, plain_ms=bplain,
                         bound_ms=bb_ms, bound_by=bb_by, max_abs_err=berr, rel_l2=rels))
-        log(f"  ragged {shape}: attn_tail {ms:.4f} ms (bound {b_ms:.4f}), max abs err "
-            f"{err:.3g}; backward {bms:.4f} ms, dev {dev_ms:.4f} (bound {bb_ms:.4f}), worst "
-            f"rel L2 {max(rels.values()):.3g}, bit-equal across two calls")
+        log(f"  ragged {shape}: attn_tail {ms:.4f} ms, dev {fdev_ms:.4f} (bound {b_ms:.4f}), "
+            f"max abs err {err:.3g}, bit-equal across two calls; backward {bms:.4f} ms, dev "
+            f"{dev_ms:.4f} (bound {bb_ms:.4f}), worst rel L2 {max(rels.values()):.3g}, "
+            "bit-equal across two calls")
         del x, g, args, fa
     return fwd, bwd
 
@@ -782,6 +850,8 @@ def phase_model(seed: int):
 def _category(name: str) -> str:
     if "conv_wgrad" in name:
         return "conv_wgrad kernel"
+    if "attn_tail_fwd" in name:  # the forward's kernels, shared bodies included
+        return "attn_tail kernel"
     if any(k in name for k in ("attn_tail_bwd", "gemm_rows", "ln_rows", "ln_bwd_rows",
                                 "wgrad_gemm", "reduce_tiled", "reduce_fused")):
         return "attn_tail backward kernel"
@@ -1104,31 +1174,42 @@ def phase_train(seed: int, workdir: str):
 
 def phase_fp32_train(seed: int, workdir: str):
     """--no_mixed_precision (fp32 compute) through the training CLI over the
-    tree in workdir: 2 steps (crop 128, batch 50), the plain route, so no
-    kernel launches; finite losses."""
+    tree in workdir: 2 steps (crop 128, batch 50) on the default wgrad route
+    and 2 more under NOISEDIFF_WGRAD=pallas (the conv_wgrad kernel is
+    bf16-only, so no conv takes it), both on the plain route of every block:
+    no kernel launches; finite losses."""
     import numpy as np
 
     from noisediff_tpu_torch.cli import train_diffusion
     from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    argv = [
-        "--save_epoch_freq", "1", "--generation_result", "noise", "--name", "train_diffusion",
-        "--net_name", "NoiseDiffNet", "--beta_schedule", "sigmoid2", "--positional_encoding",
-        "--trainset", "SonyTrainDataset", "--dim", str(DIM), "--crop_size", "128",
-        "--with_camera_settings", "--batch_size", "50", "--max_iter", "1",
-        "--random_seed", str(seed), "--device", "cuda", "--num_workers", "4",
-        "--no_mixed_precision", "--sid_folder", os.path.join(workdir, "SID"),
-        "--save_folder", os.path.join(workdir, "fp32"),
-    ]
-    reset_launch_counts()
-    summary = train_diffusion.main(argv)
-    counts = launch_counts()
-    if summary["steps"] != 2 or not all(np.isfinite(summary["losses"])):
-        raise AssertionError(f"fp32 training: {summary['steps']} steps, {summary['losses']}")
-    if any(counts.values()):
-        raise AssertionError(f"fp32 training launched kernels: {counts}")
-    log(f"  2 fp32 steps, losses {summary['losses']}, no kernel launched")
-    return {"losses": summary["losses"], "counts": counts}
+    out = {}
+    for flag in ("xla", "pallas"):
+        argv = [
+            "--save_epoch_freq", "1", "--generation_result", "noise", "--name",
+            "train_diffusion", "--net_name", "NoiseDiffNet", "--beta_schedule", "sigmoid2",
+            "--positional_encoding", "--trainset", "SonyTrainDataset", "--dim", str(DIM),
+            "--crop_size", "128", "--with_camera_settings", "--batch_size", "50",
+            "--max_iter", "1", "--random_seed", str(seed), "--device", "cuda",
+            "--num_workers", "4", "--no_mixed_precision", "--sid_folder",
+            os.path.join(workdir, "SID"), "--save_folder", os.path.join(workdir, f"fp32_{flag}"),
+        ]
+        os.environ["NOISEDIFF_WGRAD"] = flag
+        try:
+            reset_launch_counts()
+            summary = train_diffusion.main(argv)
+            counts = launch_counts()
+        finally:
+            del os.environ["NOISEDIFF_WGRAD"]
+        if summary["steps"] != 2 or not all(np.isfinite(summary["losses"])):
+            raise AssertionError(f"fp32 training ({flag}): {summary['steps']} steps, "
+                                 f"{summary['losses']}")
+        if any(counts.values()):
+            raise AssertionError(f"fp32 training ({flag}) launched kernels: {counts}")
+        log(f"  2 fp32 steps with NOISEDIFF_WGRAD={flag}, losses {summary['losses']}, "
+            "no kernel launched")
+        out[flag] = {"losses": summary["losses"], "counts": counts}
+    return out
 
 
 def phase_dim96(seed: int):

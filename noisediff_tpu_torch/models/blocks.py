@@ -23,9 +23,10 @@ a CUDA tensor launches its kernel or raises; nothing falls back per call.
 
 Stride-1 SAME convolutions can take their weight gradient from the
 conv_wgrad kernel instead of cuDNN, under the JAX package's variables
-(`wgrad_kernel_on`). `RMSNorm` and `Attention` (full self-attention through
-the flash_attention kernel) are defined, as in the reference, but
-NoiseDiffNet does not use them.
+(`wgrad_kernel_on`), where the input is bf16 and the widths are ones the
+kernel takes (`Conv2d.wgrad_route`). `RMSNorm` and `Attention` (full
+self-attention through the flash_attention kernel) are defined, as in the
+reference, but NoiseDiffNet does not use them.
 """
 from __future__ import annotations
 
@@ -152,7 +153,7 @@ class _ConvWgrad(torch.autograd.Function):
 class Conv2d(nn.Conv2d):
     """Conv with SAME padding for odd kernels, run in the input's dtype.
     A stride-1 1x1 or 3x3 conv takes the conv_wgrad route where
-    `wgrad_kernel_on` and `wgrad_channels_ok` allow it."""
+    `wgrad_route` allows it."""
 
     def __init__(self, cin: int, cout: int, ks: int, stride: int = 1,
                  padding: Optional[int] = None, bias: bool = True):
@@ -160,14 +161,20 @@ class Conv2d(nn.Conv2d):
                          padding=ks // 2 if padding is None else padding, bias=bias)
 
     def wgrad_route(self, x: torch.Tensor) -> bool:
-        """Only where a weight gradient will be taken: generation reads no
-        environment variable per conv."""
+        """Only where a weight gradient will be taken (generation reads no
+        environment variable per conv), and only where the kernel takes the
+        conv, decided before the call as `runs_kernel` decides for the other
+        blocks: bf16 input and Ci, Co divisible by 16 beside the JAX gate
+        (`wgrad_channels_ok`, `wgrad_kernel_on`). Anything else, fp32
+        (`--no_mixed_precision`) included, takes PyTorch's wgrad on either
+        device, where the JAX package computes too."""
         if not (torch.is_grad_enabled() and self.weight.requires_grad):
             return False
         ks = self.kernel_size[0]
+        ci, co = self.in_channels, self.out_channels
         return (self.stride == (1, 1) and ks in (1, 3) and self.padding == (ks // 2, ks // 2)
-                and wgrad_channels_ok(self.in_channels, self.out_channels)
-                and wgrad_kernel_on(x, self.training))
+                and x.dtype == torch.bfloat16 and ci % 16 == 0 and co % 16 == 0
+                and wgrad_channels_ok(ci, co) and wgrad_kernel_on(x, self.training))
 
     def forward(self, x):
         if self.wgrad_route(x):

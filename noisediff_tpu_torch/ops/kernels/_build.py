@@ -4,8 +4,9 @@ Each source under `noisediff_tpu_torch/csrc/` is compiled by `nvcc` on
 first use into its own shared library with a plain C interface and loaded
 with ctypes (pointers and the stream are passed as `c_void_p`). Libraries
 go to `noisediff_tpu_torch/build/` (listed in .gitignore), named by a hash of
-the source and the shared header, so an edited kernel is rebuilt and an
-unchanged one is reused. `build_all()` starts one nvcc per source at once.
+the source and every header under csrc/, so an edited kernel or header is
+rebuilt and an unchanged one is reused. `build_all()` starts one nvcc per
+source at once.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
@@ -49,8 +50,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
+    """The library's path, named by a hash of its source, every header
+    under csrc/ (any source may include any of them) and the flags."""
     h = hashlib.sha256()
-    for fn in (f"{name}.cu", "common.cuh"):
+    headers = sorted(fn for fn in os.listdir(CSRC_DIR) if fn.endswith(".cuh"))
+    for fn in (f"{name}.cu", *headers):
+        h.update(fn.encode())
         with open(os.path.join(CSRC_DIR, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -21,18 +21,23 @@ gradients of x, tok and all eight parameters. The plain backward,
 Each wrapper runs the plain version for a tensor on the CPU and its CUDA
 kernel for a tensor on the card; anything the kernel does not take raises.
 Both kernels take any pixel count (a ragged last tile is masked) and
-C % 16 == 0. `fused_attn_tail.launches` and `fused_attn_tail_bwd.launches`
-count kernel launches.
+C % 16 == 0 up to 768. `fused_attn_tail.launches` and
+`fused_attn_tail_bwd.launches` count wrapper calls that launch.
 
-The backward's work split is `bwd_plan`, plain Python so that the CPU
-tests hold it: pixel tiles of M rows walked by persistent blocks, and for
-the widths whose weight gradients go through device memory, the pixel
-splits of those products.
+Both directions have routes by C: a fused one (one persistent kernel
+with the weights resident in shared memory) at the narrow widths (the
+forward's also at C = 192 with its weights streamed), a tiled one (a
+chain of tiled products over all pixels) at the wide ones; the two share
+their device code (`csrc/attn_tail_chain.cuh`). The work splits are
+`fwd_plan` and `bwd_plan`, plain Python so that the CPU tests hold them:
+pixel strips, groups or tiles walked by persistent blocks, and on the
+tiled routes the grids of the row and product kernels (and, for the
+backward's weight gradients, the pixel splits of those products).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +45,15 @@ import torch.nn.functional as F
 from . import _build
 
 _SIGNATURES = {
-    "nd_attn_tail": [ctypes.c_void_p] * 11
+    "nd_attn_tail_occupancy": [ctypes.c_int],
+    "nd_attn_tail_smem": [ctypes.c_int],
+    "nd_attn_tail_fused": [ctypes.c_void_p] * 11
+    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+       ctypes.c_void_p],
+    "nd_attn_tail_streamed": [ctypes.c_void_p] * 12
+    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+       ctypes.c_void_p],
+    "nd_attn_tail_tiled": [ctypes.c_void_p] * 12
     + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
@@ -138,6 +151,12 @@ def block_tiles(plan) -> List[Tuple[int, int]]:
     return [(k * t // g, (k + 1) * t // g) for k in range(g)]
 
 
+def warp_tiles(plan, block: int, warp: int) -> range:
+    """Fused forward: the strips warp `warp` of block `block` takes, in order."""
+    first, end = block_tiles(plan)[block]
+    return range(first + warp, end, plan["warps"])
+
+
 def tile_rows(plan, tile: int) -> Tuple[int, int]:
     """Fused route: the pixel rows [first, end) of a tile; the last may be ragged."""
     return tile * plan["M"], min(plan["P"], (tile + 1) * plan["M"])
@@ -161,6 +180,100 @@ def ln_ranges(plan) -> List[Tuple[int, int]]:
     hw, count, rows = plan["HW"], plan["ln_splits"], plan["ln_rows"]
     return [(bi * hw + k * rows, bi * hw + min(hw, (k + 1) * rows))
             for bi in range(plan["B"]) for k in range(count)]
+
+
+# The forward's plan; the constants mirror csrc/attn_tail.cu.
+FWD_FUSED_WIDTHS = (16, 32, 48, 96)  # the fused route (at 96 it beats the tiled one)
+FWD_STREAMED_WIDTHS = (192,)         # the fused route, its weights streamed
+FWD_STRIP_ROWS = 16                  # a warp's pixel strip
+_SW_WARPS, _SW_STAGES = 8, 3         # the streamed kernel: warps (one strip each), ring slots
+_GEMM_SMEM = 81920                   # gemm_rows_body: the 4-stage ring of 128 x 32 tiles
+
+
+def fwd_warps(c: int) -> int:
+    """Warps per block of the fused forward kernel (`FwdCfg` in the .cu)."""
+    return 8 if c <= 48 else 16
+
+
+def fwd_smem_bytes(c: int) -> int:
+    """Shared memory of the fused forward kernel (`fwd_smem_plan` in the
+    .cu): the three weights in bf16 with padded rows, each warp's two x
+    strip buffers, the six fp32 vectors; at the streamed widths
+    (`sw_smem_plan`) a ring of weight slots (W1 rows and W2 columns of a
+    16-wide hidden chunk, or 16 WP rows) in place of the weights."""
+    ldc, ld2 = c + _PAD, 2 * c + _PAD
+    if c in FWD_STREAMED_WIDTHS:
+        strips = _SW_WARPS * 2 * FWD_STRIP_ROWS * ldc
+        slot = 16 * ldc + c * (16 + _PAD)
+        return 2 * (strips + _SW_STAGES * slot) + 6 * c * 4
+    strips = fwd_warps(c) * 2 * FWD_STRIP_ROWS * ldc
+    return 2 * (2 * c * ldc + c * ld2 + c * ldc + strips) + 6 * c * 4
+
+
+def fwd_route(c: int) -> str:
+    """'fused' for C in FWD_FUSED_WIDTHS, 'streamed' for C in
+    FWD_STREAMED_WIDTHS, else 'tiled' for C % 16 == 0 up to 768."""
+    if c in FWD_FUSED_WIDTHS:
+        return "fused"
+    if c in FWD_STREAMED_WIDTHS:
+        return "streamed"
+    if c % 16 == 0 and 16 <= c <= TILED_MAX_C:
+        return "tiled"
+    raise ValueError(f"attn_tail kernel is built for C % 16 == 0 and C <= {TILED_MAX_C}, "
+                     f"got C={c}")
+
+
+def fwd_plan(b: int, hw: int, c: int, sms: int, blocks_per_sm: int = 1,
+             route: Optional[str] = None) -> Dict[str, object]:
+    """The forward's work split for x of (b, H, W, c), hw = H * W, on a card
+    of `sms` SMs (`blocks_per_sm`: the fused kernel's occupancy), on
+    `route` (default `fwd_route(c)`; the other route is for measuring).
+
+    fused: P = b * hw pixel rows in `tiles` strips of M = 16 rows, the last
+    holding `last_rows`; `grid` persistent blocks of `warps` warps, block k
+    taking the strips of `block_tiles(plan)[k]`, its warp w the strips
+    `warp_tiles(plan, k, w)` (`tile_samples` gives the samples a strip's
+    rows read their token from); one launch.
+    streamed: the same over `tiles` groups of M = 128 rows (a strip per
+    warp), block k taking the groups of `block_tiles(plan)[k]`; `scratch`
+    bf16 elements for the rounded weights; two launches (the rounding, the
+    kernel).
+    tiled: the LayerNorm over `ln_blocks` blocks of `ln_rows` rows, then
+    `cast_blocks` more that round the weights; three products over
+    `row_tiles` tiles of 128 rows, `gemm_grids` their (row, column) tile
+    grids; `scratch` bf16 elements (the rounded weights, n, h, t2); four
+    launches."""
+    if b < 1 or hw < 1:
+        raise ValueError(f"attn_tail needs B, H * W >= 1, got {b}, {hw}")
+    route = route or fwd_route(c)
+    if not (route == "fused" and c in FWD_FUSED_WIDTHS
+            or route == "streamed" and c in FWD_STREAMED_WIDTHS
+            or route == "tiled" and c % 16 == 0 and 16 <= c <= TILED_MAX_C):
+        raise ValueError(f"attn_tail {route} route does not take C={c}")
+    p = b * hw
+    plan = {"route": route, "B": b, "HW": hw, "C": c, "P": p}
+    if route == "fused":
+        m, nw = FWD_STRIP_ROWS, fwd_warps(c)
+        tiles = -(-p // m)
+        plan.update(M=m, tiles=tiles, last_rows=p - (tiles - 1) * m, warps=nw,
+                    grid=max(1, min(-(-tiles // nw), sms * max(1, blocks_per_sm))),
+                    smem=fwd_smem_bytes(c), launches=1)
+        return plan
+    if route == "streamed":
+        m = _SW_WARPS * FWD_STRIP_ROWS
+        tiles = -(-p // m)
+        plan.update(M=m, tiles=tiles, last_rows=p - (tiles - 1) * m, warps=_SW_WARPS,
+                    grid=max(1, min(tiles, sms * max(1, blocks_per_sm))),
+                    smem=fwd_smem_bytes(c), scratch=5 * c * c, launches=2)
+        return plan
+    lanes = 16 if c <= 128 else 32
+    ln_rows = FUSED_THREADS // 32 * (32 // lanes)
+    row_tiles = -(-p // _GEMM_ROWS)
+    plan.update(ln_rows=ln_rows, ln_blocks=-(-p // ln_rows),
+                cast_blocks=-(-(5 * c * c // 8) // FUSED_THREADS), row_tiles=row_tiles,
+                gemm_grids=[(row_tiles, -(-n // _GEMM_ROWS)) for n in (2 * c, c, c)],
+                smem=_GEMM_SMEM, scratch=5 * c * c + 4 * c * p, launches=4)
+    return plan
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -222,21 +335,43 @@ def _check(x, tok, w1, w2, wp, what):
         raise ValueError(f"{what} kernel: parameter shapes do not match x")
 
 
-def _launch(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, eps):
+_FWD_OCCUPANCY: Dict[int, int] = {}  # fused (or streamed) forward blocks per SM, by C
+
+
+def _launch(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, eps, route=None):
+    """Launch the forward on `route` (default `fwd_route(C)`). The weights
+    go to the kernel as the fp32 parameters; the kernel rounds them."""
     _check(x, tok, w1, w2, wp, "attn_tail")
     b, h, w, c = x.shape
-    p = b * h * w
     dev = x.device
-    bf, f32 = torch.bfloat16, torch.float32
-    args = [_build.on_device(t, dev, dt) for t, dt in (
-        (tok, bf), (ln_scale, f32), (ln_bias, f32), (w1, bf), (b1, f32), (w2, bf), (b2, f32),
-        (wp, bf), (bp, f32))]
-    out = torch.empty_like(x)
     lib = _build.library("attn_tail", _SIGNATURES)
-    code = lib.nd_attn_tail(
-        _build.ptr(x), *(_build.ptr(a) for a in args), _build.ptr(out),
-        p, h * w, c, float(eps), _build.stream_ptr(dev),
-    )
+    route = route or fwd_route(c)
+    bps = 1
+    if route != "tiled":
+        if c not in _FWD_OCCUPANCY:
+            _FWD_OCCUPANCY[c] = lib.nd_attn_tail_occupancy(c)
+        bps = _FWD_OCCUPANCY[c]
+    plan = fwd_plan(b, h * w, c, _build.sm_count(dev), bps, route)
+    # held until the launch: a converted operand's memory must not go back
+    # to the allocator (and to `out`) before the kernel reads it; the fp32
+    # parameters and the bf16 token pass through with no copy
+    args = [x, _build.on_device(tok, dev, torch.bfloat16)] + [
+        _build.on_device(t, dev, torch.float32)
+        for t in (ln_scale, ln_bias, w1, b1, w2, b2, wp, bp)]
+    ptrs = [_build.ptr(t) for t in args]
+    out = torch.empty_like(x)
+    if route == "fused":
+        code = lib.nd_attn_tail_fused(*ptrs, _build.ptr(out), plan["P"], h * w, c, plan["grid"],
+                                      float(eps), _build.stream_ptr(dev))
+    elif route == "streamed":
+        wb = torch.empty(plan["scratch"], device=dev, dtype=torch.bfloat16)
+        code = lib.nd_attn_tail_streamed(*ptrs, _build.ptr(out), _build.ptr(wb), plan["P"],
+                                         h * w, c, plan["grid"], float(eps),
+                                         _build.stream_ptr(dev))
+    else:
+        ops = torch.empty(plan["scratch"], device=dev, dtype=torch.bfloat16)
+        code = lib.nd_attn_tail_tiled(*ptrs, _build.ptr(out), _build.ptr(ops), plan["P"],
+                                      h * w, c, float(eps), _build.stream_ptr(dev))
     _build.check(lib, code, "attn_tail")
     fused_attn_tail.launches += 1
     return out

@@ -67,6 +67,101 @@ def test_attn_tail_kernel(dev, hw, c):
     _close(got, reference_attn_tail(x, tok, *p), 3e-2)
 
 
+def _attn_params(dev, c):
+    return (1 + 0.1 * _randn(dev, c), 0.1 * _randn(dev, c, seed=1),
+            _randn(dev, 2 * c, c, scale=c ** -0.5), 0.1 * _randn(dev, 2 * c),
+            _randn(dev, c, 2 * c, scale=(2 * c) ** -0.5, seed=2), 0.1 * _randn(dev, c, seed=3),
+            _randn(dev, c, c, scale=c ** -0.5, seed=4), 0.1 * _randn(dev, c, seed=5))
+
+
+# every route that takes each stage's width: the fused kernel is built for
+# FWD_FUSED_WIDTHS, the streamed one for FWD_STREAMED_WIDTHS, the tiled
+# route takes every C % 16 up to 768
+FWD_ROUTES = [(4, 512, 48, "fused"), (4, 512, 48, "tiled"), (4, 256, 96, "fused"),
+              (4, 256, 96, "tiled"), (4, 128, 192, "streamed"), (4, 128, 192, "tiled"),
+              (4, 64, 384, "tiled"), (2, 32, 16, "fused"), (2, 32, 32, "tiled"),
+              (1, 16, 768, "tiled")]
+
+
+def _fwd_routes(c):
+    from noisediff_tpu_torch.ops.kernels import attn_tail as at
+
+    return [r for r, widths in (("fused", at.FWD_FUSED_WIDTHS),
+                                ("streamed", at.FWD_STREAMED_WIDTHS)) if c in widths] + ["tiled"]
+
+
+@pytest.mark.parametrize("b,hw,c,route", FWD_ROUTES)
+def test_attn_tail_forward_routes(dev, b, hw, c, route):
+    """The forward on each route at the canonical stages (B 4, crop 512)
+    against the plain version, two calls bit-equal; the default route
+    through the wrapper counts one launch."""
+    from noisediff_tpu_torch.ops.kernels import attn_tail as at
+
+    x = _randn(dev, b, hw, hw, c, dtype=torch.bfloat16)
+    tok = _randn(dev, b, c, scale=0.3, dtype=torch.bfloat16)
+    p = _attn_params(dev, c)
+    got = at._launch(x, tok, *p, 1e-5, route=route)
+    _close(got, reference_attn_tail(x, tok, *p), 3e-2)
+    assert torch.equal(got, at._launch(x, tok, *p, 1e-5, route=route))
+    if route == at.fwd_route(c):
+        before = fused_attn_tail.launches
+        assert torch.equal(fused_attn_tail(x, tok, *p), got)
+        assert fused_attn_tail.launches == before + 1
+
+
+def test_attn_tail_forward_converts_operands(dev):
+    """bf16 weights and an fp32 token (the wrapper converts them, and keeps
+    the copies alive until the launch) give the bits of the same values as
+    fp32 weights and a bf16 token, on every route."""
+    for b, hw, c in [(4, 128, 48), (4, 64, 96), (4, 32, 192), (4, 16, 384)]:
+        x = _randn(dev, b, hw, hw, c, dtype=torch.bfloat16)
+        tok = _randn(dev, b, c, scale=0.3, dtype=torch.bfloat16)
+        p = [t.to(torch.bfloat16).float() if t.dim() == 2 else t for t in _attn_params(dev, c)]
+        want = fused_attn_tail(x, tok, *p)
+        got = fused_attn_tail(x, tok.float(), *[t.to(torch.bfloat16) if t.dim() == 2 else t
+                                                for t in p])
+        assert torch.equal(got, want), c
+
+
+def test_attn_tail_forward_plan_matches_kernel(dev):
+    """The fused and streamed kernels' shared memory is the plan's; each
+    fits an SM."""
+    from noisediff_tpu_torch.ops.kernels import _build
+    from noisediff_tpu_torch.ops.kernels import attn_tail as at
+
+    lib = _build.library("attn_tail", at._SIGNATURES)
+    for c in at.FWD_FUSED_WIDTHS + at.FWD_STREAMED_WIDTHS:
+        assert lib.nd_attn_tail_smem(c) == at.fwd_smem_bytes(c)
+        assert lib.nd_attn_tail_occupancy(c) >= 1
+
+
+def test_fp32_training_step_under_pallas_wgrad(dev, monkeypatch):
+    """An fp32 NoiseDiffNet training step with NOISEDIFF_WGRAD=pallas on the
+    card: no conv takes the bf16-only conv_wgrad kernel, nothing launches,
+    the loss and every gradient are finite."""
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    monkeypatch.setenv("NOISEDIFF_WGRAD", "pallas")
+    torch.manual_seed(0)
+    net = NoiseDiffNet(dim=48).to(dev).train()
+    pd = GaussianDiffusion.create(net, image_size=64, timesteps=1000, beta_schedule="sigmoid2",
+                                  device=dev)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy((0.05 * rng.standard_normal((2, 64, 64, 4))).astype(np.float32))
+    cond = {"clean_img": torch.from_numpy(rng.uniform(0, 0.3, (2, 64, 64, 4)).astype(np.float32)),
+            "position": torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 2)).astype(np.float32)),
+            "iso_ratio_idx": torch.tensor([24, 3])}
+    reset_launch_counts()
+    loss = pd.loss(img.to(dev), {k: v.to(dev) for k, v in cond.items()})
+    loss.backward()
+    torch.cuda.synchronize()
+    assert all(n == 0 for n in launch_counts().values()), launch_counts()
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(q.grad).all()) for q in net.parameters() if q.grad is not None)
+
+
 @pytest.mark.parametrize("hw,c,groups", [(32, 48, 2), (32, 48, 8), (16, 96, 8), (8, 384, 8)])
 @pytest.mark.parametrize("film", [True, False])
 def test_groupnorm_silu_kernel(dev, hw, c, groups, film):
@@ -456,7 +551,25 @@ def test_fused_ddim_matches_unfused_on_card(dev):
 # Pixel counts that are not multiples of 16: the full frame's /8 stage,
 # crop 504's /4 stage, the tiny scale's /8 stage, and odd small maps.
 RAGGED = [(1, 178, 266, 384), (4, 126, 126, 96), (4, 2, 2, 384), (1, 7, 9, 48),
-          (4, 3, 5, 48), (4, 126, 126, 48), (1, 33, 65, 384), (7, 3, 3, 48)]
+          (4, 3, 5, 48), (4, 126, 126, 48), (1, 33, 65, 384), (7, 3, 3, 48),
+          (2, 37, 29, 192), (3, 5, 7, 192)]
+
+
+@pytest.mark.parametrize("b,h,w,c", RAGGED)
+def test_attn_tail_forward_routes_ragged(dev, b, h, w, c):
+    """The forward on every route that takes C at ragged pixel counts, at
+    test_attn_tail_ragged_shapes' tolerance, two calls bit-equal."""
+    from noisediff_tpu_torch.ops.kernels import attn_tail as at
+
+    x = _randn(dev, b, h, w, c, scale=1.5, dtype=torch.bfloat16) + 0.5
+    tok = _randn(dev, b, c, scale=0.3, dtype=torch.bfloat16)
+    p = _attn_params(dev, c)
+    want = reference_attn_tail(x, tok, *p).float()
+    for route in _fwd_routes(c):
+        out = at._launch(x, tok, *p, 1e-5, route=route)
+        err = (out.float() - want).abs()
+        assert bool((err <= 3e-2 + 3e-2 * (want.abs() + x.float().abs())).all()), route
+        assert torch.equal(out, at._launch(x, tok, *p, 1e-5, route=route)), route
 
 
 @pytest.mark.parametrize("b,h,w,c", RAGGED)

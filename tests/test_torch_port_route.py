@@ -13,8 +13,16 @@ split, on the CPU.
   `fused_attn_tail` and its VJP (the Pallas kernels in interpret mode) at
   ragged pixel counts, fp32, at the same bound.
 * `bwd_plan` puts every pixel row in exactly one tile, and every row in
-  exactly one of the sums' ranges, in a fixed order.
+  exactly one of the sums' ranges, in a fixed order; `fwd_plan` puts every
+  row in exactly one strip or group of a block's run (fused, streamed) or
+  of the row and product kernels' grids (tiled), at every width the kernel
+  takes, and its shared memory fits the card's 227 KB.
+* The kernel libraries are named by a hash of their source and every
+  header under csrc/, so an edited header is rebuilt.
 """
+import os
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +36,7 @@ from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from noisediff_tpu_torch.models import NoiseDiffNet, noisediff_net
 from noisediff_tpu_torch.models import blocks as pb
 from noisediff_tpu_torch.ops.kernels import reference_attn_tail, reference_attn_tail_bwd
+from noisediff_tpu_torch.ops.kernels import _build
 from noisediff_tpu_torch.ops.kernels import attn_tail as port_attn
 
 from torch_port_util import ATOL, RTOL, load_port, random_params
@@ -226,3 +235,104 @@ def test_bwd_route_widths():
     for c in (8, 40, 784):
         with pytest.raises(ValueError):
             port_attn.bwd_route(c)
+
+
+# ragged pixel counts, tiles across samples, the canonical stages' counts
+FWD_HWS = (1, 7, 63, 64, 65, 1000, 178 * 266, 512 * 512)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("c", range(16, port_attn.TILED_MAX_C + 1, 16))
+def test_fwd_plan_covers_every_pixel_once(b, c):
+    """The forward's plan at every width the kernel takes: the fused route
+    at C <= 48 and at 96, streamed at 192, the tiled one at the others;
+    every pixel row in exactly one strip (fused) or group (streamed) of one
+    block's run, or one LayerNorm block and one row tile of the products
+    (tiled); shared memory within the card's 227 KB."""
+    for hw in FWD_HWS:
+        plan = port_attn.fwd_plan(b, hw, c, sms=132, blocks_per_sm=2)
+        p = b * hw
+        assert plan["P"] == p and plan["smem"] <= 227 * 1024
+        assert plan["route"] == ("fused" if c <= 48 or c == 96 else
+                                 "streamed" if c == 192 else "tiled")
+        if plan["route"] != "tiled":
+            assert plan["smem"] == port_attn.fwd_smem_bytes(c)
+            assert plan["launches"] == (1 if plan["route"] == "fused" else 2)
+            assert plan["M"] == (16 if plan["route"] == "fused" else 128)
+            ranges = port_attn.block_tiles(plan)
+            assert len(ranges) == plan["grid"] <= 2 * 132
+            assert ranges[0][0] == 0 and ranges[-1][1] == plan["tiles"]
+            assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+            assert all(t1 > t0 for t0, t1 in ranges)
+            # a block's warps split its strips, each strip to one warp (the
+            # streamed route: each warp takes one strip of every group)
+            for k in range(0, plan["grid"] if plan["route"] == "fused" else 0,
+                           max(1, plan["grid"] // 7)):
+                got = sorted(t for w in range(plan["warps"])
+                             for t in port_attn.warp_tiles(plan, k, w))
+                assert got == list(range(*ranges[k]))
+            rows = [port_attn.tile_rows(plan, t) for t in range(plan["tiles"])]
+            assert rows[0][0] == 0 and rows[-1][1] == p
+            assert all(a[1] == b_[0] for a, b_ in zip(rows, rows[1:]))
+            assert rows[-1][1] - rows[-1][0] == plan["last_rows"] <= plan["M"]
+            for t in range(0, plan["tiles"], max(1, plan["tiles"] // 97)):
+                s0, s1 = port_attn.tile_samples(plan, t)
+                r0, r1 = rows[t]
+                assert s0 == r0 // hw and s1 == (r1 - 1) // hw and s0 <= s1 < b
+            continue
+        assert plan["launches"] == 4
+        assert (plan["ln_blocks"] - 1) * plan["ln_rows"] < p <= plan["ln_blocks"] * plan["ln_rows"]
+        assert (plan["row_tiles"] - 1) * 128 < p <= plan["row_tiles"] * 128
+        # the cast blocks round every weight element once, 8 a thread
+        assert (plan["cast_blocks"] - 1) * 256 * 8 < 5 * c * c <= plan["cast_blocks"] * 256 * 8
+        for (rt, ct), n in zip(plan["gemm_grids"], (2 * c, c, c)):
+            assert rt == plan["row_tiles"] and (ct - 1) * 128 < n <= ct * 128
+        assert plan["scratch"] == 5 * c * c + 4 * c * p
+
+
+def test_fwd_routes():
+    """The default routes, the widths the fused kernel is built for (where
+    the tiled route also runs, to be measured against it), and what neither
+    takes."""
+    assert [port_attn.fwd_route(c) for c in (16, 32, 48, 64, 96, 192, 384, 768)] == \
+        ["fused"] * 3 + ["tiled", "fused", "streamed", "tiled", "tiled"]
+    for route, widths in (("fused", port_attn.FWD_FUSED_WIDTHS),
+                          ("streamed", port_attn.FWD_STREAMED_WIDTHS)):
+        for c in widths:
+            assert port_attn.fwd_plan(2, 100, c, 132, route=route)["route"] == route
+            assert port_attn.fwd_plan(2, 100, c, 132, route="tiled")["route"] == "tiled"
+            assert port_attn.fwd_smem_bytes(c) <= 227 * 1024
+    with pytest.raises(ValueError):
+        port_attn.fwd_plan(1, 64, 96, 132, route="streamed")
+    for c in (8, 40, 784):
+        with pytest.raises(ValueError):
+            port_attn.fwd_route(c)
+    with pytest.raises(ValueError):
+        port_attn.fwd_plan(1, 64, 64, 132, route="fused")
+    with pytest.raises(ValueError):
+        port_attn.fwd_plan(0, 64, 48, 132)
+
+
+def test_lib_path_hashes_every_header(monkeypatch, tmp_path):
+    """A library's name changes with its source, with any header under
+    csrc/ (an edit, a new one) and with nothing else."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    names = ("attn_tail", "attn_tail_bwd", "gn_stats")
+    before = {n: _build._lib_path(n) for n in names}
+    (tmp_path / "notes.txt").write_text("not under csrc/")
+    assert {n: _build._lib_path(n) for n in names} == before
+    seen = [before]
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    assert "attn_tail_chain.cuh" in headers and "common.cuh" in headers
+    for edit in [*headers, "extra.cuh"]:
+        with open(csrc / edit, "a") as f:
+            f.write("\n// edited\n")
+        now = {n: _build._lib_path(n) for n in names}
+        assert all(now[n] != old[n] for n in names for old in seen), edit
+        seen.append(now)
+    with open(csrc / "attn_tail.cu", "a") as f:
+        f.write("\n")
+    assert _build._lib_path("attn_tail") != seen[-1]["attn_tail"]
+    assert _build._lib_path("gn_stats") == seen[-1]["gn_stats"]

@@ -5,11 +5,16 @@ held against the JAX Pallas kernel in interpret mode
 (ops/pallas/conv_wgrad.conv_wgrad). The route through models/blocks.Conv2d
 is held against the default conv backward, and a whole NoiseDiffNet
 training step (dim 16, 16^2, batch 2) with NOISEDIFF_WGRAD=pallas against
-JAX with NOISEDIFF_WGRAD=pallas-interpret. The gate's decisions are held
-against the JAX `_wgrad_pallas_mode`, as tests/test_conv_wgrad.py:174-198
-drives it. fp32: rtol 5e-4 (PARITY.md:152); gradients of the whole step
-within 2e-3 relative L2, as tests/test_torch_port_train_model.py holds
-them.
+JAX with NOISEDIFF_WGRAD=pallas-interpret. The kernel is bf16-only, so the
+route is taken for a bf16 input at widths it takes (`Conv2d.wgrad_route`);
+an fp32 step takes PyTorch's wgrad and still matches JAX, whose kernel runs
+in fp32. The gate's decisions are held against the JAX
+`_wgrad_pallas_mode`, as tests/test_conv_wgrad.py:174-198 drives it. fp32:
+rtol 5e-4 (PARITY.md:152); gradients of the whole step within 2e-3
+relative L2, as tests/test_torch_port_train_model.py holds them. bf16, the
+route against the default backward: the default rounds dW and db to bf16
+(autograd through the parameters' cast) where the route keeps fp32, so
+they agree within BF16_REL relative L2 (2^-9 per element, with margin).
 """
 import jax
 import jax.numpy as jnp
@@ -32,6 +37,7 @@ from torch_port_util import RTOL, load_port, random_params
 
 B, S, DIM = 2, 16, 16
 T = 1000
+BF16_REL = 1e-2
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -62,10 +68,12 @@ def test_plain_wgrad_matches_jax_kernel(kh, kw):
                                                 (3, 16, 48, False), (7, 32, 32, False)])
 def test_conv2d_route_matches_default(monkeypatch, ks, cin, cout, routed):
     """Conv2d under NOISEDIFF_WGRAD=pallas: the same output and gradients
-    as the default backward, and the route only where the gate allows."""
+    as the default backward, and the route only where the gate allows
+    (`routed`: for a bf16 input). An fp32 input never takes it: both runs
+    are the default backward."""
     torch.manual_seed(0)
     conv = blocks.Conv2d(cin, cout, ks)
-    x0 = torch.randn(2, cin, 9, 11).contiguous(memory_format=torch.channels_last)
+    x32 = torch.randn(2, cin, 9, 11).contiguous(memory_format=torch.channels_last)
     calls = []
 
     def counting(g, x, kh, kw):
@@ -73,17 +81,42 @@ def test_conv2d_route_matches_default(monkeypatch, ks, cin, cout, routed):
         return conv_wgrad(g, x, kh, kw)
 
     monkeypatch.setattr(blocks, "conv_wgrad", counting)
-    outs = {}
-    for flag in ("xla", "pallas"):
-        monkeypatch.setenv("NOISEDIFF_WGRAD", flag)
-        conv.zero_grad()
-        x = x0.clone().requires_grad_(True)
-        y = conv(x)
-        (y.sin() * y).sum().backward()
-        outs[flag] = (y.detach(), x.grad, conv.weight.grad.clone(), conv.bias.grad.clone())
-    assert calls == ([(ks, ks)] if routed else [])
-    for a, b in zip(outs["xla"], outs["pallas"]):
-        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=RTOL, atol=1e-4)
+    for dtype in (torch.float32, torch.bfloat16):
+        x0 = x32.to(dtype)
+        outs = {}
+        calls.clear()
+        for flag in ("xla", "pallas"):
+            monkeypatch.setenv("NOISEDIFF_WGRAD", flag)
+            conv.zero_grad()
+            x = x0.clone().requires_grad_(True)
+            y = conv(x)
+            (y.float().sin() * y.float()).sum().backward()
+            outs[flag] = (y.detach(), x.grad, conv.weight.grad.clone(), conv.bias.grad.clone())
+        if dtype == torch.float32:
+            assert calls == []
+            for a, b in zip(outs["xla"], outs["pallas"]):
+                np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=RTOL, atol=1e-4)
+        else:
+            assert calls == ([(ks, ks)] if routed else [])
+            for a, b in zip(outs["xla"], outs["pallas"]):
+                assert _rel_l2(b.float().numpy(), a.float().numpy()) < BF16_REL
+
+
+@pytest.mark.parametrize("dtype,ci,co,want", [
+    (torch.float32, 48, 48, False), (torch.bfloat16, 48, 48, True),
+    (torch.bfloat16, 40, 48, False), (torch.bfloat16, 48, 24, False),
+    (torch.bfloat16, 16, 48, False), (torch.bfloat16, 96, 384, True),
+    (torch.float16, 48, 48, False)])
+def test_wgrad_route_decides_by_dtype_and_width(monkeypatch, dtype, ci, co, want):
+    """Under NOISEDIFF_WGRAD=pallas a conv takes the kernel's route for a
+    bf16 input with Ci, Co >= 32 and divisible by 16, and nothing else; no
+    route where no weight gradient is taken."""
+    monkeypatch.setenv("NOISEDIFF_WGRAD", "pallas")
+    conv = blocks.Conv2d(ci, co, 3).train()
+    x = torch.zeros(1, ci, 8, 8, dtype=dtype)
+    assert conv.wgrad_route(x) == want
+    with torch.no_grad():
+        assert not conv.wgrad_route(x)
 
 
 def test_gate_decisions_match_jax(monkeypatch):
@@ -151,9 +184,8 @@ def test_training_step_gradients_match_jax(monkeypatch):
 
     monkeypatch.setattr(blocks, "conv_wgrad", counting)
     port = load_port(NoiseDiffNet(dim=DIM), params).train()
-    # the convs whose forward ran with the route on: every stride-1 1x1 /
-    # 3x3 conv with Ci, Co >= 32 (at dim 16 those of the 32-, 64- and
-    # 128-wide stages)
+    # the convs whose forward ran with the route on: none, in fp32 (the
+    # kernel is bf16-only; JAX's runs in fp32, and the step agrees)
     routed = []
     for m in port.modules():
         if isinstance(m, blocks.Conv2d):
@@ -165,8 +197,7 @@ def test_training_step_gradients_match_jax(monkeypatch):
                    t=torch.from_numpy(t).long(), noise=torch.from_numpy(noise))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=RTOL)
-    assert len(calls) == len(routed) > 10
-    assert all(m.in_channels >= 32 and m.out_channels >= 32 for m in routed)
+    assert calls == routed == []
 
     want = jax_params_to_state_dict(jax.tree.map(np.asarray, want_grads))
     bad = {}
@@ -178,6 +209,53 @@ def test_training_step_gradients_match_jax(monkeypatch):
         r = _rel_l2(p.grad.numpy(), want[name].numpy())
         if r > 2e-3:
             bad[name] = r
+    assert not bad, bad
+
+
+def test_bf16_training_step_on_the_route(monkeypatch):
+    """A bf16 training step (dim 16, 16^2, batch 2) under
+    NOISEDIFF_WGRAD=pallas takes the route at every stride-1 1x1 / 3x3 conv
+    with Ci, Co >= 32 and divisible by 16 (those of the 32-, 64- and
+    128-wide stages), and agrees with the default backward: the same loss
+    (the route's forward is the default's), every gradient within BF16_REL
+    relative L2."""
+    img, cond = _batch()
+    rng = np.random.default_rng(7)
+    t = torch.from_numpy(rng.integers(0, T, B)).long()
+    noise = torch.from_numpy(rng.standard_normal(img.shape).astype(np.float32))
+    calls = []
+
+    def counting(g, x, kh, kw):
+        calls.append((kh, kw))
+        return conv_wgrad(g, x, kh, kw)
+
+    monkeypatch.setattr(blocks, "conv_wgrad", counting)
+    torch.manual_seed(3)
+    net = NoiseDiffNet(dim=DIM, dtype=torch.bfloat16).train()
+    routed = []
+    for m in net.modules():
+        if isinstance(m, blocks.Conv2d):
+            m.register_forward_pre_hook(
+                lambda mod, args: routed.append(mod) if mod.wgrad_route(args[0]) else None)
+    pd = GaussianDiffusion.create(net, image_size=S, timesteps=T, beta_schedule="sigmoid2",
+                                  device="cpu")
+    runs = {}
+    for flag in ("xla", "pallas"):
+        monkeypatch.setenv("NOISEDIFF_WGRAD", flag)
+        net.zero_grad(set_to_none=True)
+        loss = pd.loss(torch.from_numpy(img), {k: torch.from_numpy(v) for k, v in cond.items()},
+                       t=t, noise=noise)
+        loss.backward()
+        runs[flag] = (float(loss.detach()), {n: p.grad.clone() for n, p in net.named_parameters()
+                                             if p.grad is not None})
+    assert len(calls) == len(routed) > 10
+    assert all(m.in_channels % 16 == 0 and m.out_channels % 16 == 0 and m.in_channels >= 32
+               and m.out_channels >= 32 for m in routed)
+    assert runs["pallas"][0] == runs["xla"][0]
+    want, got = runs["xla"][1], runs["pallas"][1]
+    assert got.keys() == want.keys()
+    bad = {n: r for n in want
+           if (r := _rel_l2(got[n].float().numpy(), want[n].float().numpy())) > BF16_REL}
     assert not bad, bad
 
 
