@@ -312,9 +312,7 @@ def phase_kernels(seed: int):
     """Kernel vs plain version and timings at every generation-path shape."""
     import torch
 
-    from noisediff_tpu_torch.ops.kernels import (
-        fused_dual_head, fused_groupnorm_film_silu, reference_dual_head,
-        reference_groupnorm_film_silu)
+    from noisediff_tpu_torch.ops.kernels import fused_dual_head, reference_dual_head
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -326,27 +324,7 @@ def phase_kernels(seed: int):
 
     results["attn_tail"] = kernels_attn_tail(randn)
 
-    # groupnorm_silu at every (stage, groups, FiLM) the path uses
-    rows = []
-    for st, groups, film, count in GN_PER_EVAL:
-        res, c = STAGES[st]
-        x = randn(BATCH, res * res, c, dtype=torch.bfloat16)
-        gamma, beta = 1.0 + 0.1 * randn(c), 0.1 * randn(c)
-        fs, fsh = (0.2 * randn(BATCH, c), 0.2 * randn(BATCH, c)) if film else (None, None)
-        args = (x, gamma, beta, fs, fsh, groups)
-        err = compare("groupnorm_silu", fused_groupnorm_film_silu(*args),
-                      reference_groupnorm_film_silu(*args))
-        ms = time_ms(lambda: fused_groupnorm_film_silu(*args))
-        plain = time_ms(lambda: reference_groupnorm_film_silu(*args), reps=5)
-        moved = 2 * nbytes(x) + 2 * c * 4 + (2 * BATCH * c * 4 if film else 0)
-        b_ms, b_by = bound(moved, 8 * x.numel(), PEAK_FP32_FLOPS)
-        rows.append(dict(shape=[BATCH, res * res, c], groups=groups, film=film,
-                         calls=count, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=err))
-        log(f"  groupnorm_silu {res}^2 x {c} G{groups} film={film}: {ms:.4f} ms "
-            f"(plain {plain:.4f}, bound {b_ms:.4f} {b_by}), max abs err {err:.3g}")
-        del x, args
-    results["groupnorm_silu"] = rows
+    results["groupnorm_silu"] = kernels_groupnorm_silu(randn)
 
     # dual_head at full resolution
     c = DIM
@@ -354,18 +332,24 @@ def phase_kernels(seed: int):
     p = (randn(c, c, scale=c ** -0.5), 0.1 * randn(c), randn(4, c, scale=c ** -0.5),
          0.1 * randn(4), randn(4, c, scale=c ** -0.5), 0.1 * randn(4))
     args = (x, sa, sb) + p
-    err = compare("dual_head", fused_dual_head(*args), reference_dual_head(*args))
+    got = fused_dual_head(*args)
+    err = compare("dual_head", got, reference_dual_head(*args))
+    if not torch.equal(got, fused_dual_head(*args)):
+        raise AssertionError("dual_head: two calls differ")
     ms = time_ms(lambda: fused_dual_head(*args))
+    dev_ms = time_device_ms(lambda: fused_dual_head(*args))
+    host_ms = host_ms_per_call(lambda: fused_dual_head(*args))
     plain = time_ms(lambda: reference_dual_head(*args), reps=5)
     pix = BATCH * CROP * CROP
     moved = 3 * nbytes(x) + pix * 4 * 4 + (c * c + 8 * c + c + 8) * 4
     b_ms, b_by = bound(moved, 2 * pix * (c * c + 8 * c), PEAK_BF16_FLOPS)
-    results["dual_head"] = [dict(shape=[BATCH, CROP, CROP, c], calls=1, ms=ms,
-                                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+    results["dual_head"] = [dict(shape=[BATCH, CROP, CROP, c], calls=1, ms=ms, device_ms=dev_ms,
+                                 host_ms=host_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                  max_abs_err=err)]
-    log(f"  dual_head {CROP}^2 x {c}: {ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.4f} "
-        f"{b_by}), max abs err {err:.3g}")
-    del x, sa, sb, args
+    log(f"  dual_head {CROP}^2 x {c}: {ms:.4f} ms, dev {dev_ms:.4f} ({dev_ms / b_ms:.2f}x the "
+        f"bound {b_ms:.4f} {b_by}; host {host_ms:.4f} per call; plain {plain:.4f}), max abs err "
+        f"{err:.3g}, bit-equal across two calls")
+    del x, sa, sb, args, got
     torch.cuda.empty_cache()
     results.update(kernels_training(randn))
     torch.cuda.empty_cache()
@@ -378,6 +362,65 @@ def phase_kernels(seed: int):
     results.update(kernels_attention(randn))
     torch.cuda.empty_cache()
     return results
+
+
+# groupnorm_silu shapes no main path gives: the full frame's /8 stage (B 1,
+# a sample over the blocks' shared memory: rows read twice), crop 504's /4
+# stage, and the narrowest width the kernel takes
+GN_RAGGED = [(1, 178 * 266, 384, 8), (4, 126 * 126, 96, 8), (2, 16 * 16, 8, 2)]
+
+
+def kernels_groupnorm_silu(randn):
+    """groupnorm_silu with the folded conv bias at every (stage, groups,
+    FiLM) the evaluation uses, then at GN_RAGGED (calls 0): against the
+    plain version, one launch per call, two calls bit-equal, per call and
+    on the card's clock beside the bound (x read once, y written once), and
+    the wrapper's host time per call. The FiLM is bf16, the halves of one
+    (B, 2C) tensor, as the time-MLP gives it."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import (
+        fused_groupnorm_film_silu, reference_groupnorm_film_silu)
+    from noisediff_tpu_torch.ops.kernels import groupnorm_silu as gs
+
+    shapes = [(BATCH, STAGES[st][0] ** 2, STAGES[st][1], groups, film, count)
+              for st, groups, film, count in GN_PER_EVAL]
+    shapes += [(b, n, c, groups, True, 0) for b, n, c, groups in GN_RAGGED]
+    rows = []
+    for b, n, c, groups, film, count in shapes:
+        x = randn(b, n, c, scale=1.5, dtype=torch.bfloat16) + 0.3
+        gamma, beta, bias = 1.0 + 0.1 * randn(c), 0.1 * randn(c), 0.3 * randn(c)
+        fs = fsh = None
+        if film:
+            t = (0.2 * randn(b, 2 * c)).to(torch.bfloat16)
+            fs, fsh = t[:, :c], t[:, c:]
+        args = (x, gamma, beta, fs, fsh, groups, 1e-5, bias)
+        n0 = fused_groupnorm_film_silu.launches
+        got = fused_groupnorm_film_silu(*args)
+        if fused_groupnorm_film_silu.launches != n0 + 1:
+            raise AssertionError(f"groupnorm_silu {b}x{n}x{c}: "
+                                 f"{fused_groupnorm_film_silu.launches - n0} launches in a call")
+        err = compare("groupnorm_silu", got, reference_groupnorm_film_silu(*args))
+        if not torch.equal(got, fused_groupnorm_film_silu(*args)):
+            raise AssertionError(f"groupnorm_silu {b}x{n}x{c}: two calls differ")
+        ms = time_ms(lambda: fused_groupnorm_film_silu(*args))
+        dev_ms = time_device_ms(lambda: fused_groupnorm_film_silu(*args))
+        host_ms = host_ms_per_call(lambda: fused_groupnorm_film_silu(*args))
+        plain = time_ms(lambda: reference_groupnorm_film_silu(*args), reps=5)
+        moved = 2 * nbytes(x) + 3 * c * 4 + (2 * b * c * 2 if film else 0)
+        b_ms, b_by = bound(moved, 8 * x.numel(), PEAK_FP32_FLOPS)
+        plan = gs.plan(b, n, c, *gs._kernel(x.device)[2:])
+        rows.append(dict(shape=[b, n, c], groups=groups, film=film, bias=True, calls=count,
+                         rounds=plan["rounds"], reread=plan["reread"], ms=ms, device_ms=dev_ms,
+                         host_ms=host_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=err))
+        log(f"  groupnorm_silu {b}x{n}x{c} G{groups} film={film} bias: {ms:.4f} ms, dev "
+            f"{dev_ms:.4f} ({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; host {host_ms:.4f} "
+            f"per call; plain {plain:.4f}; {plan['rounds']} round(s)"
+            f"{', rows read twice' if plan['reread'] else ''}), max abs err {err:.3g}, one "
+            "launch, bit-equal across two calls")
+        del x, args, got
+    return rows
 
 
 def kernels_attn_tail(randn):
@@ -482,9 +525,13 @@ def kernels_ddim(randn):
         scal = ddim_step_scalars(alpha, alpha_next, sigma,
                                  (1.0 - alpha_next - sigma ** 2) ** 0.5)
         args = (x, sa, sb, xt, noise) + p + (scal,)
-        err = compare("ddim_head", fused_ddim_head_update(*args),
-                      reference_ddim_head_update(*args))
+        got = fused_ddim_head_update(*args)
+        err = compare("ddim_head", got, reference_ddim_head_update(*args))
+        if not torch.equal(got, fused_ddim_head_update(*args)):
+            raise AssertionError(f"ddim_head sigma {sigma}: two calls differ")
         ms = time_ms(lambda: fused_ddim_head_update(*args))
+        dev_ms = time_device_ms(lambda: fused_ddim_head_update(*args))
+        host_ms = host_ms_per_call(lambda: fused_ddim_head_update(*args))
         plain = time_ms(lambda: reference_ddim_head_update(*args), reps=5)
         pix = BATCH * CROP * CROP
         moved = 3 * nbytes(x) + 2 * nbytes(xt) + (nbytes(z) if sigma else 0) \
@@ -493,10 +540,11 @@ def kernels_ddim(randn):
         # the main path (eta 0) runs one call per evaluation; the noisy
         # variant is checked and timed, not counted
         rows.append(dict(shape=[BATCH, CROP, CROP, c], sigma=sigma, calls=0 if sigma else 1,
-                         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, max_abs_err=err))
-        log(f"  ddim_head {CROP}^2 x {c} sigma {sigma}: {ms:.4f} ms (plain {plain:.4f}, bound "
-            f"{b_ms:.4f} {b_by}), max abs err {err:.3g}")
+                         ms=ms, device_ms=dev_ms, host_ms=host_ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=err))
+        log(f"  ddim_head {CROP}^2 x {c} sigma {sigma}: {ms:.4f} ms, dev {dev_ms:.4f} "
+            f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; host {host_ms:.4f} per call; "
+            f"plain {plain:.4f}), max abs err {err:.3g}, bit-equal across two calls")
     return {"ddim_head": rows}
 
 
@@ -783,13 +831,16 @@ def kernels_training(randn):
             if not all(torch.equal(a, b) for a, b in zip(got, fn(*args))):
                 raise AssertionError(f"{name} {res}^2 x {c}: two calls differ")
             ms = time_ms(lambda: fn(*args))
+            dev_ms = time_device_ms(lambda: fn(*args))
+            host_ms = host_ms_per_call(lambda: fn(*args))
             plain = time_ms(lambda: ref(*args), reps=5)
             b_ms, b_by = bound(reads + out_bytes, flops, PEAK_FP32_FLOPS)
             results[name].append(dict(shape=[BATCH, res, res, c], calls=GN_PER_STEP[st], ms=ms,
-                                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                                      max_abs_err=err))
-            log(f"  {name} {res}^2 x {c}: {ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.4f} "
-                f"{b_by}), max abs err {err:.3g}")
+                                      device_ms=dev_ms, host_ms=host_ms, plain_ms=plain,
+                                      bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+            log(f"  {name} {res}^2 x {c}: {ms:.4f} ms, dev {dev_ms:.4f} ({dev_ms / b_ms:.2f}x "
+                f"the bound {b_ms:.4f} {b_by}; host {host_ms:.4f} per call; plain {plain:.4f}), "
+                f"max abs err {err:.3g}, bit-equal across two calls")
 
         args = attn_tail_args(randn, x, g)
         err, rels = check_attn_tail_bwd(f"{res}^2 x {c}", args)
@@ -860,8 +911,8 @@ def _category(name: str) -> str:
     if "channel_partial_sums<true>" in name or "ILb1E" in name:
         return "gn_grad_stats kernel"
     if "channel_partial_sums" in name or "sum_partials" in name:
-        return "GroupNorm statistics (gn_stats, or groupnorm_silu's first pass)"
-    if name.startswith("gn_") or "gn_apply" in name or "gn_coeffs" in name:
+        return "GroupNorm statistics (gn_stats)"
+    if "groupnorm_silu" in name:
         return "groupnorm_silu kernel"
     if "dual_head" in name:
         return "dual_head kernel"
@@ -905,6 +956,36 @@ def phase_profile(seed: int, evals: int = 3):
     if not by_name:
         log("  torch.profiler recorded no device time")
         return dict(eval_ms=eval_ms)
+    adds = _add_kernels(prof, evals)
+
+    # the same evaluation with every Block's conv bias on the conv again
+    # (the route before the fold), for the add kernels it launches
+    from noisediff_tpu_torch.models import blocks
+
+    folded = blocks.Block.forward
+    blocks.Block.forward = lambda self, xx, ss=None: self.norm(self.proj(xx), ss)
+    try:
+        with torch.inference_mode(), torch.profiler.profile(activities=acts) as prof_unfolded:
+            for _ in range(evals):
+                model(x, t, cond)
+            torch.cuda.synchronize()
+    finally:
+        blocks.Block.forward = folded
+    adds_unfolded = _add_kernels(prof_unfolded, evals)
+    busy_unfolded = sum(_device_ms_by_name(prof_unfolded, evals).values())
+    fold_calls = sum(count for *_, count in GN_PER_EVAL)
+    ops, ops_unfolded = _add_ops(prof, evals), _add_ops(prof_unfolded, evals)
+    log(f"  add kernels per evaluation: {sum(adds.values()):g} with the conv bias folded into "
+        f"groupnorm_silu, {sum(adds_unfolded.values()):g} with it on the conv (aten add calls "
+        f"{ops:g} against {ops_unfolded:g}); device busy {busy:.4f} against "
+        f"{busy_unfolded:.4f} ms")
+    for name in sorted(set(adds) | set(adds_unfolded)):
+        log(f"    {adds_unfolded.get(name, 0):g} -> {adds.get(name, 0):g}  {name[:110]}")
+    # the host's record of the calls is exact; the device's kernel records
+    # can miss a few when the profiler's buffers fill
+    if ops_unfolded - ops != fold_calls:
+        raise AssertionError(f"the fold should remove {fold_calls} add calls per evaluation, "
+                             f"removed {ops_unfolded - ops:g}")
     cats = {}
     for name, ms in by_name.items():
         cats[_category(name)] = cats.get(_category(name), 0.0) + ms
@@ -914,6 +995,25 @@ def phase_profile(seed: int, evals: int = 3):
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {ms:9.4f} ms  {name[:110]}")
     return dict(eval_ms=eval_ms, wall_ms=wall_ms, busy_ms=busy, categories=cats)
+
+
+def _add_kernels(prof, n: int):
+    """{kernel name: launches per evaluation} of PyTorch's add kernels (the
+    broadcast bias adds among them) in a profile of n evaluations."""
+    out = {}
+    for e in prof.key_averages():
+        low = e.key.lower()
+        if str(e.device_type).endswith("CUDA") and "add" in low.replace("padd", ""):
+            out[e.key] = out.get(e.key, 0) + e.count / n
+    return out
+
+
+def _add_ops(prof, n: int) -> float:
+    """aten add calls per evaluation in a profile of n evaluations (each
+    launches one kernel on the card), from the host's records."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("aten::add", "aten::add_")
+               and not str(e.device_type).endswith("CUDA")) / n
 
 
 def _device_ms_by_name(prof, n: int):
@@ -1634,9 +1734,10 @@ KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is 
 
 def kernels_line(results, launches):
     """One entry per kernel. ms, plain_ms, bound_ms and library_ms (and,
-    for conv_wgrad and flash_attention, device_ms and library_device_ms:
-    the same on the card's clock, `time_device_ms`) are summed over the
-    calls of one model evaluation at the canonical
+    where the rows have them, device_ms and library_device_ms: the same on
+    the card's clock, `time_device_ms`; host_ms: the wrapper's host time,
+    `host_ms_per_call`) are summed over the calls of one model evaluation
+    at the canonical
     generation config, one training step at the canonical training config,
     one DDIM evaluation, one training step on the conv_wgrad route or one
     Attention call (`ms_per`): each shape's median time times its calls;
@@ -1650,9 +1751,11 @@ def kernels_line(results, launches):
         counted = [r for r in rows if r["calls"]]
         lib = (sum(r["library_ms"] * r["calls"] for r in counted)
                if all(r.get("library_ms") is not None for r in counted) else None)
-        # the card's clock (time_device_ms), where the kernel's rows have it
-        device = {k: sum(r[k] * r["calls"] for r in rows)
-                  for k in ("device_ms", "library_device_ms") if all(k in r for r in rows)}
+        # the card's clock (time_device_ms) and the wrapper's host time
+        # (host_ms_per_call), where the kernel's counted rows have them
+        device = {k: sum(r[k] * r["calls"] for r in counted)
+                  for k in ("device_ms", "library_device_ms", "host_ms")
+                  if counted and all(k in r for r in counted)}
         # the bound of the shapes that carry most of the bound time
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "bytes")
         n, split = launches[name]
@@ -1703,6 +1806,12 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.split(chr(39))[1][:110]}")
             elif "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
+    for name in ("groupnorm_silu", "dual_head"):  # designed to run without spills
+        spills = [ln.strip() for ln in build_logs.get(name, "").splitlines()
+                  if "spill" in ln and not ln.strip().startswith(
+                      "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+        if spills:
+            raise AssertionError(f"{name}: ptxas reports spills: {spills}")
     sass = flash_sass_counts(_build._lib_path("flash_attention"), _build._nvcc())
     log("  flash_attention D=32 main loop, SASS instructions per score element: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sass.items()))
@@ -1748,13 +1857,14 @@ def main(argv=None) -> int:
     phase_dim96(args.seed)
     log(f"[done] {time.time() - t_start:.1f} s")
 
-    gc, tc, steps = gen["counts"], train["counts"], train["steps"]
+    gc, dc, tc, steps = gen["counts"], ddim["counts"], train["counts"], train["steps"]
     launches = {}
     for name in ("attn_tail", "groupnorm_silu", "dual_head", "attn_tail_bwd", "gn_stats",
                  "gn_grad_stats"):
         w = KERNEL_META[name][0]
-        launches[name] = (gc[w] + tc[w], {
+        launches[name] = (gc[w] + dc[w] + tc[w], {
             "launches_generation": gc[w], "launches_per_batch": gc[w] / N_BATCHES,
+            "launches_ddim": dc[w], "launches_ddim_per_batch": dc[w] / N_BATCHES,
             "launches_training": tc[w], "launches_per_step": tc[w] / steps})
     n = ddim["counts"]["fused_ddim_head_update"]
     launches["ddim_head"] = (n, {"launches_per_batch": n / N_BATCHES})

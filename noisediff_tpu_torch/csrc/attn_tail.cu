@@ -139,33 +139,6 @@ __host__ __device__ inline FwdSmem fwd_smem_plan(int C) {
   return s;
 }
 
-// Eight consecutive fp32 values, rounded to bf16 in one 16-byte word.
-__device__ __forceinline__ uint4 round8(const float* __restrict__ src) {
-  float f[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) f[k] = __ldg(src + k);
-  return pack8(f);
-}
-
-// Whole block: rows x cols of a row-major fp32 matrix, rounded to bf16,
-// into shared memory with row stride ldd. cols % 8 == 0.
-__device__ __forceinline__ void stage_rounded(bf16* dst, int ldd, const float* __restrict__ src,
-                                              int rows, int cols) {
-  const int vec = cols / 8;
-  for (int t = threadIdx.x; t < rows * vec; t += blockDim.x) {
-    const int r = t / vec, v = t - r * vec;
-    *reinterpret_cast<uint4*>(dst + r * ldd + v * 8) = round8(src + (size_t)r * cols + v * 8);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float2 unpack_bf2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
 // The strip helpers below run on one warp and its 16-row strip in the
 // mma.sync m16n8k16 fragment layout: lane l holds rows g = l / 4 and g + 8,
 // columns 2 (l % 4) + {0, 1} and + {8, 9} of each 16-column chunk, both of
@@ -226,22 +199,6 @@ __device__ __forceinline__ void strip_layernorm(const bf16* cur, const bf16* tka
     nA[kc][1] = pack_bf2(ln(tb[kc][0], mean_b, inv_b, c0), ln(tb[kc][1], mean_b, inv_b, c0 + 1));
     nA[kc][2] = pack_bf2(ln(ta[kc][2], mean_a, inv_a, c1), ln(ta[kc][3], mean_a, inv_a, c1 + 1));
     nA[kc][3] = pack_bf2(ln(tb[kc][2], mean_b, inv_b, c1), ln(tb[kc][3], mean_b, inv_b, c1 + 1));
-  }
-}
-
-// h = gelu(u + b1) for hidden columns 16 j .. (u: the FF1 accumulator
-// pair), as an A fragment of FF2.
-__device__ __forceinline__ void gelu_chunk(const float (&u)[2][4], int j, const float* v_b1,
-                                           uint32_t (&hA)[4]) {
-  const int tig = threadIdx.x & 3;
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const int c = 16 * j + 8 * nt + 2 * tig;
-    const float b0 = v_b1[c], b1 = v_b1[c + 1];
-    hA[2 * nt] = pack_bf2(gelu_accurate(round_bf16(u[nt][0] + b0)),
-                          gelu_accurate(round_bf16(u[nt][1] + b1)));
-    hA[2 * nt + 1] = pack_bf2(gelu_accurate(round_bf16(u[nt][2] + b0)),
-                              gelu_accurate(round_bf16(u[nt][3] + b1)));
   }
 }
 

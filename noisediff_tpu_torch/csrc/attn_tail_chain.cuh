@@ -4,13 +4,15 @@
 //     tok2 = x + tok[b];  n = LN(tok2);  h = gelu(n w1^T + b1)
 //     t2 = (h w2^T + b2) + tok2;  out = (t2 wp^T + bp) + x
 // The PTX helpers (cp.async, ldmatrix, mma.sync m16n8k16, the hardware
-// tanh and GELU through it), the mma fragments' ldmatrix addressing, and
+// tanh and GELU through it), the staging of fp32 weights as bf16 and the
+// strips' fragment helpers, the mma fragments' ldmatrix addressing, and
 // the bodies of the tiled routes' row and product kernels (`ln_rows_body`,
 // `gemm_rows_body` with every epilogue of both directions). Each source
 // wraps the bodies in kernels of its own names, so a profile tells the
-// forward's launches from the backward's.
+// forward's launches from the backward's. The dual head (dual_head.cu)
+// carries its strips with the same helpers.
 //
-// One header for both, so the forward and the backward's recompute cannot
+// One header for all, so the forward and the backward's recompute cannot
 // drift apart; _build.py hashes every header into each library's name.
 #pragma once
 
@@ -95,6 +97,58 @@ __device__ __forceinline__ float gelu_accurate(float v) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(2.8853900817779268f * fabsf(y)));
   const float r = __fdividef(2.0f, e + 1.0f);
   return 0.5f * v * (y < 0.0f ? r : 2.0f - r);
+}
+
+// ---------------------------------------------------------------------------
+// Staging and strip fragments, shared by the attn_tail forward's strips and
+// the dual head's (dual_head.cu): fp32 parameters rounded to bf16 while
+// staged; bf16 pairs packed into a 32-bit fragment register. In the
+// mma.sync m16n8k16 layout lane l holds rows g = l / 4 and g + 8, columns
+// 2 (l % 4) + {0, 1} and + {8, 9} of each 16-column chunk, both of an
+// accumulator pair (two n8 tiles) and of an A fragment, so a product's
+// output is the next product's A operand without leaving registers.
+
+// Eight consecutive fp32 values, rounded to bf16 in one 16-byte word.
+__device__ __forceinline__ uint4 round8(const float* __restrict__ src) {
+  float f[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) f[k] = __ldg(src + k);
+  return pack8(f);
+}
+
+// Whole block: rows x cols of a row-major fp32 matrix, rounded to bf16,
+// into shared memory with row stride ldd. cols % 8 == 0.
+__device__ __forceinline__ void stage_rounded(bf16* dst, int ldd, const float* __restrict__ src,
+                                              int rows, int cols) {
+  const int vec = cols / 8;
+  for (int t = threadIdx.x; t < rows * vec; t += blockDim.x) {
+    const int r = t / vec, v = t - r * vec;
+    *reinterpret_cast<uint4*>(dst + r * ldd + v * 8) = round8(src + (size_t)r * cols + v * 8);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// h = gelu(u + b1) for hidden columns 16 j .. (u: the FF1 accumulator
+// pair), as an A fragment of FF2.
+__device__ __forceinline__ void gelu_chunk(const float (&u)[2][4], int j, const float* v_b1,
+                                           uint32_t (&hA)[4]) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int c = 16 * j + 8 * nt + 2 * tig;
+    const float b0 = v_b1[c], b1 = v_b1[c + 1];
+    hA[2 * nt] = pack_bf2(gelu_accurate(round_bf16(u[nt][0] + b0)),
+                          gelu_accurate(round_bf16(u[nt][1] + b1)));
+    hA[2 * nt + 1] = pack_bf2(gelu_accurate(round_bf16(u[nt][2] + b0)),
+                              gelu_accurate(round_bf16(u[nt][3] + b1)));
+  }
 }
 
 // ---------------------------------------------------------------------------

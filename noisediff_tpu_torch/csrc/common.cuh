@@ -61,8 +61,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // dynamic shared memory. Block (s, b) sums rows [s * rows_per_split,
 // (s + 1) * rows_per_split) of sample b and writes part[b][s] = [sum a,
 // sum a * a] (GRAD = false; b unused) or [sum a, sum a * b] (GRAD = true),
-// part (B, S, 2, C). Shared by the GroupNorm statistics (groupnorm_silu.cu,
-// gn_stats.cu) and the GroupNorm affine's gradient statistics (gn_stats.cu).
+// part (B, S, 2, C). The training path's GroupNorm statistics and the
+// affine's gradient statistics (gn_stats.cu).
 __host__ __device__ inline int partial_sums_rows_in_flight(int C) {
   const int r = 256 / (C / 8);
   return r < 1 ? 1 : r;

@@ -14,7 +14,7 @@
 //
 // Design: a GPU has no sequential grid, so the rows of each sample are
 // split over about 4 * SMs / B blocks.
-//   1. channel_partial_sums (common.cuh, shared with groupnorm_silu.cu):
+//   1. channel_partial_sums (common.cuh):
 //      grid (S, B); each block streams a contiguous slab of rows with
 //      16-byte loads (8 channels per thread, rows in flight across the
 //      block), sums in fp32 registers, reduces its rows in shared memory and

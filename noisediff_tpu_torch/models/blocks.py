@@ -176,10 +176,13 @@ class Conv2d(nn.Conv2d):
                 and x.dtype == torch.bfloat16 and ci % 16 == 0 and co % 16 == 0
                 and wgrad_channels_ok(ci, co) and wgrad_kernel_on(x, self.training))
 
-    def forward(self, x):
+    def forward(self, x, with_bias: bool = True):
+        """with_bias False: the conv without its bias, which the caller
+        adds (Block folds it into the groupnorm_silu kernel)."""
+        bias = self.bias if with_bias else None
         if self.wgrad_route(x):
-            return _ConvWgrad.apply(x, self.weight, self.bias, self.padding[0])
-        b = None if self.bias is None else self.bias.to(x.dtype)
+            return _ConvWgrad.apply(x, self.weight, bias, self.padding[0])
+        b = None if bias is None else bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
 
 
@@ -329,6 +332,11 @@ def _film_fold(a, bb, scale_shift):
     return a * s1, bb * s1 + sh.reshape(sh.shape[0], -1).float()
 
 
+def _per_pixel(scale_shift) -> bool:
+    """A FiLM whose maps vary over pixels (ResnetBlock2's), not (B, C, 1, 1)."""
+    return scale_shift is not None and scale_shift[0].shape[-2:] != (1, 1)
+
+
 class GroupNorm(nn.Module):
     """Block's norm + FiLM + SiLU tail.
 
@@ -341,7 +349,9 @@ class GroupNorm(nn.Module):
     that is absent or per-sample goes through the groupnorm_silu kernel; a
     per-pixel FiLM stays in plain torch, as in the JAX package. Where
     `runs_kernel('groupnorm', dtype, channels)` is false, both routes call
-    the kernels' plain versions."""
+    the kernels' plain versions. On the kernel's route the caller may hand
+    over the bias of the conv that made x (`folds_bias`), which the kernel
+    adds where it reads x."""
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
@@ -352,20 +362,29 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x, scale_shift=None):
+    def folds_bias(self, scale_shift) -> bool:
+        """Whether this call runs the groupnorm_silu kernel, which can add
+        the bias of the conv before it: evaluation, the kernel's route, and
+        a FiLM that is absent or per-sample."""
+        return self.kernels and not self.training and not _per_pixel(scale_shift)
+
+    def forward(self, x, scale_shift=None, conv_bias=None):
         b, c, h, w = x.shape
-        per_pixel = scale_shift is not None and scale_shift[0].shape[-2:] != (1, 1)
+        per_pixel = _per_pixel(scale_shift)
+        if conv_bias is not None and not self.folds_bias(scale_shift):
+            raise ValueError("GroupNorm adds a conv bias only on the groupnorm_silu kernel's "
+                             "route (folds_bias)")
         if self.training:
             return self._train_forward(x, scale_shift, per_pixel)
         if per_pixel:
             return self._per_pixel_film(x, scale_shift)
         fs = fsh = None
-        if scale_shift is not None:
-            fs = scale_shift[0].reshape(b, c).float()
-            fsh = scale_shift[1].reshape(b, c).float()
+        if scale_shift is not None:  # the kernel reads the FiLM in its own dtype
+            fs = scale_shift[0].reshape(b, c)
+            fsh = scale_shift[1].reshape(b, c)
         fn = fused_groupnorm_film_silu if self.kernels else reference_groupnorm_film_silu
         y = fn(to_nhwc(x).view(b, h * w, c), self.weight, self.bias, fs, fsh, self.groups,
-               self.eps)
+               self.eps, conv_bias)
         return to_nchw(y.view(b, h, w, c))
 
     def _train_forward(self, x, scale_shift, per_pixel: bool):
@@ -396,7 +415,11 @@ class GroupNorm(nn.Module):
 
 
 class Block(nn.Module):
-    """conv3x3 -> GroupNorm -> (optional FiLM) -> SiLU (:128-144)."""
+    """conv3x3 -> GroupNorm -> (optional FiLM) -> SiLU (:128-144). Where
+    the norm runs the groupnorm_silu kernel (`GroupNorm.folds_bias`), the
+    conv runs without its bias and the kernel adds it: the same bf16
+    values, one broadcast add less. Training, the per-pixel FiLM and the
+    plain routes keep the bias on the conv."""
 
     def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
                  dtype: Optional[torch.dtype] = None):
@@ -405,6 +428,8 @@ class Block(nn.Module):
         self.norm = GroupNorm(dim_out, groups, dtype=dtype)
 
     def forward(self, x, scale_shift=None):
+        if self.norm.folds_bias(scale_shift):
+            return self.norm(self.proj(x, with_bias=False), scale_shift, self.proj.bias)
         return self.norm(self.proj(x), scale_shift)
 
 

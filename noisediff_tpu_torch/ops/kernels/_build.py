@@ -130,9 +130,12 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def on_device(t, device, dtype):
-    """t as a contiguous tensor of `dtype` on `device` (no copy when it is
-    one), cut from autograd: a launch's inputs are raw pointers, so the
-    wrappers that need gradients go through a torch.autograd.Function."""
+    """t as a contiguous tensor of `dtype` on `device`: t itself when it is
+    one (no copy, no cast kernel, no new tensor per call), else a converted
+    copy. A launch's inputs are raw pointers, so the wrappers that need
+    gradients go through a torch.autograd.Function."""
+    if t.dtype == dtype and t.device == device and t.is_contiguous():
+        return t
     return t.detach().to(device=device, dtype=dtype).contiguous()
 
 

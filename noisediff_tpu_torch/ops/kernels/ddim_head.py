@@ -81,7 +81,7 @@ def reference_ddim_head_update(x, shot_a, shot_b, xt, noise: Optional[torch.Tens
 
 
 def _launch(x, shot_a, shot_b, xt, noise, w1, b1, w2, b2, wr, br, scal):
-    params, p, blocks = head_args(x, shot_a, shot_b, w1, b1, w2, b2, wr, br, "ddim_head")
+    params, p = head_args(x, shot_a, shot_b, w1, b1, w2, b2, wr, br, "ddim_head")
     for t in (xt,) if noise is None else (xt, noise):
         if t.dtype != torch.float32 or t.shape != x.shape[:3] + (4,) or not t.is_contiguous():
             raise ValueError("ddim_head kernel takes a contiguous fp32 (B, H, W, 4) carry "
@@ -90,10 +90,9 @@ def _launch(x, shot_a, shot_b, xt, noise, w1, b1, w2, b2, wr, br, scal):
     out = torch.empty_like(xt)
     lib = _build.library("dual_head", _SIGNATURES)
     code = lib.nd_ddim_head(
-        _build.ptr(x), _build.ptr(shot_a), _build.ptr(shot_b),
-        *(_build.ptr(a) for a in params), _build.ptr(xt),
-        None if noise is None else _build.ptr(noise), _build.ptr(out),
-        p, x.shape[-1], blocks, *_scalars(scal), _build.stream_ptr(dev),
+        x.data_ptr(), shot_a.data_ptr(), shot_b.data_ptr(), *(a.data_ptr() for a in params),
+        xt.data_ptr(), None if noise is None else noise.data_ptr(), out.data_ptr(),
+        p, x.shape[-1], *_scalars(scal), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "ddim_head")
     fused_ddim_head_update.launches += 1

@@ -11,12 +11,13 @@ shot_mlp3 (fc1 C -> C, fc2 C -> 4) on the shot branch plus final_conv
 CUDA kernel for a tensor on the card; anything the kernel does not take
 raises. `fused_dual_head.launches` counts kernel launches.
 
-On the card the wrapper is a torch.autograd.Function: the forward is the
-kernel; the backward is autograd of `reference_dual_head`, recomputed from
-the saved inputs. That is the JAX package's own design
-(ops/pallas/dual_head.py:119-131, a custom_vjp whose backward is the jnp
-reference): the JAX package has no Pallas backward for this kernel, so this
-plain backward on the card is its counterpart, not a fallback.
+Where a gradient is wanted on the card the wrapper is a
+torch.autograd.Function: the forward is the kernel; the backward is
+autograd of `reference_dual_head`, recomputed from the saved inputs. That
+is the JAX package's own design (ops/pallas/dual_head.py:119-131, a
+custom_vjp whose backward is the jnp reference): the JAX package has no
+Pallas backward for this kernel, so this plain backward on the card is its
+counterpart, not a fallback.
 """
 from __future__ import annotations
 
@@ -29,13 +30,11 @@ from .attn_tail import _linear, gelu
 
 # the library also holds the DDIM tail's entry point (ddim_head.py)
 _SIGNATURES = {
-    "nd_dual_head": [ctypes.c_void_p] * 10
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "nd_dual_head": [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "nd_ddim_head": [ctypes.c_void_p] * 12
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 7 + [ctypes.c_void_p],
+    + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 7 + [ctypes.c_void_p],
 }
 _KERNEL_WIDTHS = (16, 32, 48, 64)
-_BLOCKS_PER_SM = 8
 
 
 def reference_dual_head(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
@@ -47,10 +46,18 @@ def reference_dual_head(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
     return _linear(h, w2, b2) + _linear(x, wr, br)
 
 
+def head_params(w1, b1, w2, b2, wr, br, dev):
+    """The head parameters as the kernel reads them: fp32, contiguous, on
+    `dev`; each is the tensor itself when it already is (the model's fp32
+    parameters: nothing is cast per call; the kernel rounds the weights to
+    bf16 while staging them)."""
+    return tuple(_build.on_device(t, dev, torch.float32) for t in (w1, b1, w2, b2, wr, br))
+
+
 def head_args(x, shot_a, shot_b, w1, b1, w2, b2, wr, br, what: str):
     """Check the kernel's inputs and return the head parameters as the
-    kernel takes them (the weights rounded to bf16 and held as fp32) with
-    the pixel count and the grid size. Shared with the DDIM tail."""
+    kernel takes them (`head_params`) with the pixel count. Shared with the
+    DDIM tail."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} kernel needs a CUDA tensor, got {x.device}")
     for t in (x, shot_a, shot_b):
@@ -63,29 +70,17 @@ def head_args(x, shot_a, shot_b, w1, b1, w2, b2, wr, br, what: str):
         raise ValueError(f"{what} kernel is built for C in {_KERNEL_WIDTHS}, got {c}")
     if tuple(w1.shape) != (c, c) or tuple(w2.shape) != (4, c) or tuple(wr.shape) != (4, c):
         raise ValueError(f"{what} kernel: head shapes must be (C, C), (4, C), (4, C)")
-    dev = x.device
-
-    def w_rounded(t):  # the products take bf16 weights, held as fp32
-        return _build.on_device(t, dev, torch.bfloat16).float()
-
-    def f32(t):
-        return _build.on_device(t, dev, torch.float32)
-
-    params = (w_rounded(w1), f32(b1), w_rounded(w2), f32(b2), w_rounded(wr), f32(br))
-    p = b * h * w
-    blocks = max(1, min(-(-p // 128), _BLOCKS_PER_SM * _build.sm_count(dev)))
-    return params, p, blocks
+    return head_params(w1, b1, w2, b2, wr, br, x.device), b * h * w
 
 
 def _launch(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
-    params, p, blocks = head_args(x, shot_a, shot_b, w1, b1, w2, b2, wr, br, "dual_head")
+    params, p = head_args(x, shot_a, shot_b, w1, b1, w2, b2, wr, br, "dual_head")
     dev = x.device
     out = torch.empty(x.shape[:3] + (4,), device=dev, dtype=torch.float32)
     lib = _build.library("dual_head", _SIGNATURES)
     code = lib.nd_dual_head(
-        _build.ptr(x), _build.ptr(shot_a), _build.ptr(shot_b),
-        *(_build.ptr(a) for a in params), _build.ptr(out), p, x.shape[-1], blocks,
-        _build.stream_ptr(dev),
+        x.data_ptr(), shot_a.data_ptr(), shot_b.data_ptr(), *(a.data_ptr() for a in params),
+        out.data_ptr(), p, x.shape[-1], torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "dual_head")
     fused_dual_head.launches += 1
@@ -114,7 +109,10 @@ def fused_dual_head(x, shot_a, shot_b, w1, b1, w2, b2, wr, br) -> torch.Tensor:
     Differentiable on both devices."""
     if x.device.type == "cpu":
         return reference_dual_head(x, shot_a, shot_b, w1, b1, w2, b2, wr, br)
-    return _DualHead.apply(x, shot_a, shot_b, w1, b1, w2, b2, wr, br)
+    args = (x, shot_a, shot_b, w1, b1, w2, b2, wr, br)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _DualHead.apply(*args)
+    return _launch(*args)
 
 
 fused_dual_head.launches = 0

@@ -174,6 +174,77 @@ def test_groupnorm_silu_kernel(dev, hw, c, groups, film):
     _close(got, reference_groupnorm_film_silu(x, gamma, beta, fs, fsh, groups), 2e-2)
 
 
+# groupnorm_silu: the evaluation's stages (B 4), the full frame's /8 stage
+# (B 1: a sample over the blocks' shared memory, rows read twice), crop
+# 504's /4 stage and the narrowest width, as (B, N, C, groups)
+GN_SHAPES = [(4, 512 * 512, 48, 2), (4, 512 * 512, 48, 8), (4, 256 * 256, 96, 8),
+             (4, 128 * 128, 192, 8), (4, 64 * 64, 384, 8), (1, 178 * 266, 384, 8),
+             (4, 126 * 126, 96, 8), (2, 16 * 16, 8, 2)]
+
+
+@pytest.mark.parametrize("b,n,c,groups", GN_SHAPES)
+@pytest.mark.parametrize("bias,film", [(True, True), (False, False), (True, False),
+                                       (False, True)])
+def test_groupnorm_silu_one_launch(dev, b, n, c, groups, bias, film):
+    """The one-launch kernel with the folded conv bias and the bf16 FiLM
+    halves of the time-MLP's output: within 2e-2 of the plain version (as
+    chip_smoke.TOLS), one launch per call, two calls bit-equal."""
+    x = _randn(dev, b, n, c, scale=1.5, dtype=torch.bfloat16) + 0.3
+    gamma, beta = 1 + 0.1 * _randn(dev, c), 0.1 * _randn(dev, c, seed=1)
+    cb = 0.3 * _randn(dev, c, seed=2) if bias else None
+    fs = fsh = None
+    if film:
+        t = (0.2 * _randn(dev, b, 2 * c, seed=3)).to(torch.bfloat16)
+        fs, fsh = t[:, :c], t[:, c:]
+    args = (x, gamma, beta, fs, fsh, groups, 1e-5, cb)
+    n0 = fused_groupnorm_film_silu.launches
+    got = fused_groupnorm_film_silu(*args)
+    assert fused_groupnorm_film_silu.launches == n0 + 1
+    _close(got, reference_groupnorm_film_silu(*args), 2e-2)
+    assert torch.equal(got, fused_groupnorm_film_silu(*args))
+
+
+def test_groupnorm_silu_conv_bias_gradient(dev):
+    """With autograd on, the conv bias gets the plain version's gradient."""
+    c = 48
+    x = _randn(dev, 2, 256, c, scale=1.5, dtype=torch.bfloat16)
+    gamma, beta, cb = 1 + 0.1 * _randn(dev, c), 0.1 * _randn(dev, c, seed=1), _randn(dev, c)
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta, cb)]
+    fused_groupnorm_film_silu(*leaves[:3], None, None, 8, 1e-5,
+                              leaves[3]).float().square().sum().backward()
+    ref = [t.clone().requires_grad_(True) for t in (x, gamma, beta, cb)]
+    reference_groupnorm_film_silu(*ref[:3], None, None, 8, 1e-5,
+                                  ref[3]).float().square().sum().backward()
+    for a, r in zip(leaves, ref):
+        assert a.grad is not None and _rel(a.grad, r.grad) < 2e-2
+
+
+@pytest.mark.parametrize("c", [16, 32, 48, 64])
+@pytest.mark.parametrize("sigma", [None, 0.0, 0.1])
+def test_head_kernels_ragged(dev, c, sigma):
+    """dual_head (sigma None) and ddim_head (sigma 0: no noise read; 0.1)
+    at every width the kernels take and a pixel count that is not a
+    multiple of 16 (2 x 13 x 11 = 286), at chip_smoke.TOLS; two calls
+    bit-equal; the parameters as fp32 leaves of the model's own layout."""
+    x, sa, sb = (_randn(dev, 2, 13, 11, c, dtype=torch.bfloat16, seed=s) for s in range(3))
+    p = (_randn(dev, c, c, scale=c ** -0.5), 0.1 * _randn(dev, c),
+         _randn(dev, 4, c, scale=c ** -0.5, seed=1), 0.1 * _randn(dev, 4),
+         _randn(dev, 4, c, scale=c ** -0.5, seed=2), 0.1 * _randn(dev, 4, seed=3))
+    if sigma is None:
+        args, fn, ref, tol = (x, sa, sb) + p, fused_dual_head, reference_dual_head, 1e-2
+    else:
+        xt = _randn(dev, 2, 13, 11, 4, seed=4)
+        noise = _randn(dev, 2, 13, 11, 4, seed=5) if sigma else None
+        scal = ddim_step_scalars(0.3, 0.45, sigma, (1 - 0.45 - sigma ** 2) ** 0.5)
+        args = (x, sa, sb, xt, noise) + p + (scal,)
+        fn, ref, tol = fused_ddim_head_update, reference_ddim_head_update, 2e-2
+    n0 = fn.launches
+    got = fn(*args)
+    assert fn.launches == n0 + 1 and got.shape == (2, 13, 11, 4) and got.dtype == torch.float32
+    _close(got, ref(*args), tol)
+    assert torch.equal(got, fn(*args))
+
+
 @pytest.mark.parametrize("c", [16, 48, 64])
 def test_dual_head_kernel(dev, c):
     x, sa, sb = (_randn(dev, 2, 16, 16, c, dtype=torch.bfloat16, seed=s) for s in range(3))
