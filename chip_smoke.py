@@ -20,7 +20,8 @@ Every phase runs, in this order (any failure exits non-zero):
            and 128^2 x 192 beside the tiled one, the wrapper's host time per
            call and the dim-96 model's widths; the attn_tail forward and backward also at
            ragged pixel counts (RAGGED_SHAPES); both bit-equal across two
-           calls
+           calls; gn_stats and gn_grad_stats one kernel a call, read from a
+           torch.profiler profile of each shape
   model    the full-width (dim 48) NoiseDiffNet forward on the card, bf16
            through the kernels, against the same weights on the CPU
   profile  one model evaluation at the canonical shape: CUDA-event time and
@@ -502,6 +503,60 @@ def host_ms_per_call(fn, n: int = 50) -> float:
     return host
 
 
+def profile_calls(fn, n: int = 5):
+    """The device work of calls of fn, from torch.profiler: n calls, each
+    after a short sleep kernel (`spin_kernel`, a divider in the device
+    trace) and followed by a sync. The launches per call are the profile's
+    device events other than the dividers over n, rounded up: a record the
+    profiler drops or files out of place cannot hide a second launch (a
+    profile with fewer events than calls is taken again, up to three
+    times). `kernel_us` is each kernel's device time per call, over the
+    whole profile. What the dividers show is extra and fails nothing: for
+    the call of median span among those with that many events, each event's
+    name and device time and the gaps between them, in us (None where no
+    call came through whole)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                torch.cuda._sleep(1000)
+                fn()
+                torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+        evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+        work = [e for e in evs if "spin_kernel" not in e.name]
+        if len(work) >= n:
+            break
+    launches = -(-len(work) // n)
+    kernel_us = {}
+    for e in work:
+        us = (e.time_range.end - e.time_range.start) / n
+        kernel_us[e.name] = kernel_us.get(e.name, 0.0) + us
+    calls, cur = [], None
+    for e in evs:
+        if "spin_kernel" in e.name:
+            if cur is not None:
+                calls.append(cur)
+            cur = []
+        elif cur is not None:
+            cur.append(e)
+    full = [c for c in calls if c and len(c) == launches]
+    out = dict(launches=launches, kernel_us=kernel_us, span_us=None, kernels=None, gaps_us=None)
+    if full:
+        spans = [c[-1].time_range.end - c[0].time_range.start for c in full]
+        mid = sorted(range(len(full)), key=spans.__getitem__)[len(full) // 2]
+        call = full[mid]
+        out.update(span_us=spans[mid],
+                   kernels=[(e.name, e.time_range.end - e.time_range.start) for e in call],
+                   gaps_us=[b.time_range.start - a.time_range.end for a, b in zip(call, call[1:])])
+    return out
+
+
 def kernels_ddim(randn):
     """The DDIM tail at the canonical shape: a middle step of DDIM-100 with
     no noise (eta 0, the main path) and one with noise; no PyTorch call
@@ -795,8 +850,10 @@ def kernels_ragged(randn):
 
 def kernels_training(randn):
     """The training path's kernels at the canonical training shapes: gn_stats
-    and gn_grad_stats at the four stages, the attn_tail backward at the four
-    stages (every gradient against autograd of the plain version)."""
+    and gn_grad_stats at the four stages (one kernel a call, read from a
+    profile of calls of each shape: `profile_calls`), the attn_tail backward
+    at the four stages (every gradient against autograd of the plain
+    version)."""
     import torch
 
     from noisediff_tpu_torch.ops.kernels import (
@@ -834,13 +891,22 @@ def kernels_training(randn):
             dev_ms = time_device_ms(lambda: fn(*args))
             host_ms = host_ms_per_call(lambda: fn(*args))
             plain = time_ms(lambda: ref(*args), reps=5)
+            prof = profile_calls(lambda: fn(*args))
+            if prof["launches"] != 1:
+                raise AssertionError(f"{name} {res}^2 x {c}: {prof['launches']} kernels a call "
+                                     f"({prof['kernel_us']})")
             b_ms, b_by = bound(reads + out_bytes, flops, PEAK_FP32_FLOPS)
             results[name].append(dict(shape=[BATCH, res, res, c], calls=GN_PER_STEP[st], ms=ms,
                                       device_ms=dev_ms, host_ms=host_ms, plain_ms=plain,
-                                      bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+                                      bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                                      launches_per_call=prof["launches"],
+                                      kernel_us=prof["kernel_us"], profiled_us=prof["span_us"],
+                                      kernels=prof["kernels"], gaps_us=prof["gaps_us"]))
             log(f"  {name} {res}^2 x {c}: {ms:.4f} ms, dev {dev_ms:.4f} ({dev_ms / b_ms:.2f}x "
                 f"the bound {b_ms:.4f} {b_by}; host {host_ms:.4f} per call; plain {plain:.4f}), "
-                f"max abs err {err:.3g}, bit-equal across two calls")
+                f"max abs err {err:.3g}, bit-equal across two calls; profiled: "
+                f"{prof['launches']} kernel a call "
+                f"({ {k[:40]: round(v, 2) for k, v in prof['kernel_us'].items()} } us)")
 
         args = attn_tail_args(randn, x, g)
         err, rels = check_attn_tail_bwd(f"{res}^2 x {c}", args)
@@ -908,9 +974,9 @@ def _category(name: str) -> str:
         return "attn_tail backward kernel"
     if "attn_tail" in name:
         return "attn_tail kernel"
-    if "channel_partial_sums<true>" in name or "ILb1E" in name:
+    if "gn_grad_stats" in name:
         return "gn_grad_stats kernel"
-    if "channel_partial_sums" in name or "sum_partials" in name:
+    if "gn_stats" in name:
         return "GroupNorm statistics (gn_stats)"
     if "groupnorm_silu" in name:
         return "groupnorm_silu kernel"

@@ -12,9 +12,11 @@ noisediff_tpu/ops/pallas/gn_stats.py (`gn_stats`, `gn_grad_stats`); its
 `custom_partitioning` wrappers are multi-chip plumbing and wait for the
 distributed slice.
 
-Bound on the H100: memory (one read of x, or of g and x). The kernels split
-each sample's rows over about 4 blocks per SM and sum the per-block
-partials in a second, fixed-order pass (see the .cu file).
+Bound on the H100: memory (one read of x, or of g and x). One launch a
+call: each sample's rows are split over `plan`'s S blocks, and the block
+that arrives last sums the sample's S partials in a fixed order (see the
+.cu file). The two sums come back as the two views of one (2, B, C)
+tensor.
 
 On a CPU tensor each function runs its plain version; on a CUDA tensor it
 launches its kernel or raises. `gn_stats.launches` and
@@ -24,6 +26,7 @@ the model's autograd Functions call them inside forward and backward.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Tuple
 
 import torch
@@ -31,13 +34,41 @@ import torch
 from . import _build
 
 _SIGNATURES = {
-    "nd_gn_stats": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "nd_gn_grad_stats": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "nd_gn_stats": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "nd_gn_grad_stats": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
-_BLOCKS_PER_SM = 4
 _MAX_C = 2048
+# the kernel's block: up to THREADS threads, a whole number of rows of C / 8
+# sixteen-byte pieces each
+THREADS = 512
+# blocks a sample's rows go to: one per SLAB_BYTES of the sample (of each
+# input), and no more than fill the card BLOCKS_PER_SM deep (the blocks an
+# SM holds at once: registers)
+SLAB_BYTES = 128 * 1024
+BLOCKS_PER_SM = 2
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+@lru_cache(maxsize=256)
+def plan(b: int, n: int, c: int, sms: int) -> dict:
+    """The kernel's launch for (b, n, c) maps on a card of `sms` SMs: grid
+    (splits, b) of `threads` threads; block (s, j) sums rows [s * rows,
+    min(n, (s + 1) * rows)) of sample j. Scratch: `part` fp32 partials
+    (b, splits, 2c) and `counters` arrival words (b); `smem`: the block's
+    dynamic shared memory in bytes, which the kernel is launched with:
+    [rows in flight][2c] fp32 sums and the slices of their reduction (at
+    most one float a thread)."""
+    lanes = c // 8
+    rif = max(1, THREADS // lanes)  # rows in flight
+    fill = -(-BLOCKS_PER_SM * sms // b)
+    by_bytes = -(-n * c * 2 // SLAB_BYTES)
+    splits = max(1, min(n, fill, by_bytes))
+    rows = max(1, -(-n // splits))
+    splits = max(1, -(-n // rows))
+    threads = rif * lanes
+    return dict(splits=splits, rows=rows, threads=threads, smem=(rif * 2 * c + threads) * 4,
+                part=b * splits * 2 * c, counters=b)
 
 
 def reference_gn_stats(x: torch.Tensor) -> Pair:
@@ -64,23 +95,47 @@ def _check(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} kernel needs C % 8 == 0 and C <= {_MAX_C}, got C={c}")
 
 
+class _Scratch:
+    """The kernel's partials and per-sample arrival counters for one (card,
+    stream), grown as calls need. The counters start at zero and every call
+    leaves them at zero."""
+
+    def __init__(self, dev, parts: int, samples: int):
+        self.part = torch.empty(parts, device=dev, dtype=torch.float32)
+        self.count = torch.zeros(samples, device=dev, dtype=torch.int32)
+
+
+_SCRATCH = {}
+_KERNEL = {}  # (card index, C entry point name) -> (the entry point, its library, SM count)
+
+
+def _kernel(dev, fn_name: str):
+    k = _KERNEL.get((dev.index, fn_name))
+    if k is None:
+        lib = _build.library("gn_stats", _SIGNATURES)
+        k = _KERNEL[dev.index, fn_name] = (getattr(lib, fn_name), lib, _build.sm_count(dev))
+    return k
+
+
 def _launch(fn_name: str, tensors, what: str) -> Pair:
     x = tensors[-1]
     b, h, w, c = x.shape
     n = h * w
     dev = x.device
-    splits = max(1, min(n, -(-_BLOCKS_PER_SM * _build.sm_count(dev) // b)))
-    rows_per_split = -(-n // splits)
-    splits = -(-n // rows_per_split)
-    part = torch.empty((b, splits, 2, c), device=dev, dtype=torch.float32)
-    s1 = torch.empty((b, c), device=dev, dtype=torch.float32)
-    s2 = torch.empty_like(s1)
-    lib = _build.library("gn_stats", _SIGNATURES)
-    code = getattr(lib, fn_name)(
-        *(_build.ptr(t) for t in tensors), _build.ptr(part), _build.ptr(s1), _build.ptr(s2),
-        b, n, c, splits, rows_per_split, _build.stream_ptr(dev))
+    fn, lib, sms = _kernel(dev, fn_name)
+    p = plan(b, n, c, sms)
+    # the raw handle of the current stream: torch.cuda.current_stream builds
+    # a Stream object a call, a large share of the wrapper's host time
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    key = (dev.index, stream)
+    s = _SCRATCH.get(key)
+    if s is None or s.part.numel() < p["part"] or s.count.numel() < p["counters"]:
+        s = _SCRATCH[key] = _Scratch(dev, max(p["part"], 1 << 16), max(p["counters"], 64))
+    out = torch.empty((2, b, c), device=dev, dtype=torch.float32)
+    code = fn(*(t.data_ptr() for t in tensors), s.part.data_ptr(), s.count.data_ptr(),
+              out.data_ptr(), b, n, c, p["splits"], p["rows"], p["threads"], p["smem"], stream)
     _build.check(lib, code, what)
-    return s1, s2
+    return out.unbind(0)
 
 
 def gn_stats(x: torch.Tensor) -> Pair:

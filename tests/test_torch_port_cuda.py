@@ -260,19 +260,65 @@ def _rel(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-12))
 
 
-@pytest.mark.parametrize("b,hw,c", [(2, 32, 48), (4, 16, 96), (1, 8, 384), (3, 5, 8)])
-def test_gn_stats_kernels(dev, b, hw, c):
-    x = _randn(dev, b, hw, hw, c, scale=1.5, dtype=torch.bfloat16)
-    g = _randn(dev, b, hw, hw, c, dtype=torch.bfloat16, seed=1)
-    n0, n1 = gn_stats.launches, gn_grad_stats.launches
-    for got, want in ((gn_stats(x), reference_gn_stats(x)),
-                      (gn_grad_stats(g, x), reference_gn_grad_stats(g, x))):
+def _gn_inputs(dev, b, h, w, c):
+    x = _randn(dev, b, h, w, c, scale=1.5, dtype=torch.bfloat16)
+    g = _randn(dev, b, h, w, c, dtype=torch.bfloat16, seed=1)
+    return x, g
+
+
+def _gn_check(x, g):
+    """Both kernels against their plain versions; returns their outputs."""
+    b, c = x.shape[0], x.shape[-1]
+    outs = (gn_stats(x), gn_grad_stats(g, x))
+    for got, want in zip(outs, (reference_gn_stats(x), reference_gn_grad_stats(g, x))):
         for gt, wt in zip(got, want):
             assert gt.dtype == torch.float32 and gt.shape == (b, c)
             torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-3)
+    return outs
+
+
+# hw: a square side or (H, W). The one-launch design's edges: a map smaller
+# than one block's slab (2x2x384), a pixel count no slab size divides (5x7),
+# B 1 and B 16, C 8 and C 2048 (the wrapper's limit)
+@pytest.mark.parametrize("b,hw,c", [(2, 32, 48), (4, 16, 96), (1, 8, 384), (3, 5, 8),
+                                    (4, 2, 384), (3, (5, 7), 48), (1, (48, 40), 192),
+                                    (16, 12, 96), (4, (33, 31), 8), (2, (9, 7), 2048)])
+def test_gn_stats_kernels(dev, b, hw, c):
+    h, w = hw if isinstance(hw, tuple) else (hw, hw)
+    x, g = _gn_inputs(dev, b, h, w, c)
+    n0, n1 = gn_stats.launches, gn_grad_stats.launches
+    _gn_check(x, g)
     assert (gn_stats.launches, gn_grad_stats.launches) == (n0 + 1, n1 + 1)
     assert all(torch.equal(a, b) for a, b in zip(gn_stats(x), gn_stats(x)))
     assert all(torch.equal(a, b) for a, b in zip(gn_grad_stats(g, x), gn_grad_stats(g, x)))
+
+
+# calls one after another with nothing reset between them: shapes of other
+# batch sizes and splits in turn (an arrival counter left non-zero by one
+# call would end another's sum early or never), and a call on a side stream
+# (its own scratch) beside the current stream's
+@pytest.mark.parametrize("case", ["alternating", "side_stream"])
+def test_gn_stats_kernel_call_sequences(dev, case):
+    shapes = [(4, 32, 32, 48), (2, 3, 5, 384), (16, 8, 8, 96), (1, 64, 64, 8), (3, 2, 2, 2048)]
+    inputs = [_gn_inputs(dev, *s) for s in shapes]
+    first = [_gn_check(x, g) for x, g in inputs]
+    if case == "alternating":
+        for _ in range(3):
+            for (x, g), want in zip(inputs, first):
+                got = (gn_stats(x), gn_grad_stats(g, x))
+                assert all(torch.equal(a, b) for gw, ww in zip(got, want)
+                           for a, b in zip(gw, ww))
+        return
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [(gn_stats(x), gn_grad_stats(g, x)) for x, g in inputs]
+        got += [_gn_check(x, g) for x, g in inputs]
+    torch.cuda.current_stream().wait_stream(side)
+    again = [_gn_check(x, g) for x, g in inputs]
+    for outs in (got[:len(inputs)], got[len(inputs):], again):
+        for o, want in zip(outs, first):
+            assert all(torch.equal(a, b) for gw, ww in zip(o, want) for a, b in zip(gw, ww))
 
 
 def _attn_args(dev, b, hw, c):
