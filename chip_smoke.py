@@ -70,6 +70,23 @@ Every phase runs, in this order (any failure exits non-zero):
            steps (crop 128, batch 50) after train_wgrad on the default wgrad
            route and 2 under NOISEDIFF_WGRAD=pallas; no kernel launches,
            finite outputs and losses
+  denoise  stage 2 of the pipeline: LSID (base width 32, bf16 over fp32
+           parameters) trained through the denoising CLI at script.sh:24's
+           config (--loss_l1 --crop_size 256 --sub_darkshading --use_sna
+           --batch_size 4, SyntheticNoisDiffDenoisingDataset) on the main
+           phase's own 8 generated patches, with PMN dark-shading resources
+           made from the seed, 13 epochs of 2 steps. Checks the losses, that
+           no kernel of the port launched, the snapshots and that
+           net_final.pth loads into LSID strictly; reports steps/s and
+           samples/s after the first 3 steps on the card's clock, the
+           epochs' wall time and loader waits, peak memory; SNA's Poisson
+           draw on the card by its moments and apply_sna's lattice; then a
+           step's period with the batch on the card and its device busy
+           time by kernel class (torch.profiler) with the idle share
+  denoise_check  one LSID step from make_denoising_train_step (flip and
+           SNA off, B 2, 256^2) on the card against the CPU: fp32 on both
+           within DENOISE_FP32_LOSS / DENOISE_FP32_GRAD, bf16 on the card
+           within train_check's bounds
   attention  blocks.Attention forward and backward at B 4, C 384, 64^2
            tokens (the flash_attention kernel) against the CPU in fp32
   dim96    a dim-96 NoiseDiffNet forward on its route (the heads on their
@@ -1082,11 +1099,17 @@ def _add_ops(prof, n: int) -> float:
                and not str(e.device_type).endswith("CUDA")) / n
 
 
+def _device_events(prof):
+    """The profile's device kernels and copies: its CUDA events other than
+    the device spans of record_function ranges (the optimizer's
+    'Optimizer.step#Adam.step', whose kernels have events of their own)."""
+    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _device_ms_by_name(prof, n: int):
     by_name = {}
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
+    for e in _device_events(prof):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -1179,7 +1202,7 @@ def phase_train_check(seed: int):
     return out
 
 
-def _check_grads(what, b, s, loss, grads, loss16, g16, g32):
+def _check_grads(what, b, s, loss, grads, loss16, g16, g32, model="dim-48"):
     """A card step's loss and gradients against the CPU's bf16 and fp32
     steps, within train_check's bounds."""
     import torch
@@ -1207,7 +1230,7 @@ def _check_grads(what, b, s, loss, grads, loss16, g16, g32):
     out["grad_rel_l2_all"] = rel_l2(torch.cat(cat_c), torch.cat(cat_16))
     out["grad_rel_l2_worst_param"] = worst
     n_read = sum(1 for n in grads if not is_unread_parameter(n))
-    log(f"  {what}: dim-48 train step {b}x{s}^2: loss card {loss:.6f}, CPU bf16 {loss16:.6f}; "
+    log(f"  {what}: {model} train step {b}x{s}^2: loss card {loss:.6f}, CPU bf16 {loss16:.6f}; "
         f"{n_read} read parameters with finite gradients on the card; all gradients vs CPU "
         f"bf16 rel L2 {out['grad_rel_l2_all']:.4g}, worst parameter {worst:.4g}")
     if bad or out["grad_rel_l2_all"] > 5e-2:
@@ -1771,6 +1794,328 @@ def phase_ddim(seed: int, workdir: str, ckpt: str):
 
 # ---------------------------------------------------------------------------
 # every kernel wrapper's name, as launch_counts() keys them
+# the denoising stage at script.sh:24's config: LSID (base width 32), crop
+# 256, batch 4, over the main phase's 8 generated 512^2 patches: 2 steps an
+# epoch, 13 epochs (the LR staircase changes after epochs 6 and 10)
+DENOISE_BATCH, DENOISE_CROP, DENOISE_EPOCHS = 4, 256, 13
+DENOISE_SAVE_FREQ = 6
+DENOISE_PROFILE_STEPS = 8
+# denoise_check: one LSID step (B 2, 256^2, L1, flip and SNA off). fp32 on
+# the card against fp32 on the CPU with TF32 off: the loss within
+# DENOISE_FP32_LOSS and each gradient within DENOISE_FP32_GRAD relative L2
+# (sums in another order through 23 convolutions forward and back); bf16 on
+# the card: _check_grads' bounds (the loss within 2e-2 of the CPU's bf16
+# one, each gradient as close to the CPU's fp32 one as the CPU's bf16
+# gradient is, within 2x + 0.02, all within 5e-2 of the CPU's bf16 ones)
+DENOISE_FP32_LOSS = 1e-5
+DENOISE_FP32_GRAD = 1e-3
+# SNA's Poisson draw on the card, each channel's mean and variance within
+# this many standard errors of lam
+POISSON_SE = 5.0
+
+
+def make_denoise_resources(root: str, seed: int) -> str:
+    """PMN dark-shading resources at the smoke tree's Bayer frame size
+    (2 FRAME square), in PMN's format: darkshading_{high,low}ISO_{k,b}.npy
+    and darkshading_BLE.pkl keyed by ISO; returns their directory."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 2)
+    res = os.path.join(root, "resources")
+    os.makedirs(res)
+    for band in ("low", "high"):
+        np.save(os.path.join(res, f"darkshading_{band}ISO_k.npy"),
+                rng.normal(0, 1e-3, (2 * FRAME, 2 * FRAME)).astype(np.float32))
+        np.save(os.path.join(res, f"darkshading_{band}ISO_b.npy"),
+                rng.normal(0, 2.0, (2 * FRAME, 2 * FRAME)).astype(np.float32))
+    with open(os.path.join(res, "darkshading_BLE.pkl"), "wb") as f:
+        pickle.dump({800: 0.3}, f)
+    return res
+
+
+def check_poisson_on_card():
+    """torch.poisson on the card (SNA's draw) at a fixed lam field: every
+    draw an integer, each channel's mean and variance within POISSON_SE
+    standard errors of lam; then apply_sna's noisy increment on the card
+    lies on the lattice K * ratio / (WP - BL)."""
+    import torch
+
+    from noisediff_tpu_torch.ops import sna
+
+    dev = torch.device("cuda")
+    lam = torch.tensor([0.5, 3.0, 40.0, 900.0], device=dev)
+    draws = torch.poisson(lam.expand(1024, 1024, 4).contiguous(),
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    d = draws.reshape(-1, 4).double()
+    n, lam = d.shape[0], lam.double()
+    mean_z = ((d.mean(0) - lam) / (lam / n).sqrt()).abs()
+    var_z = ((d.var(0) - lam) / (lam * ((2 + 1 / lam) / n).sqrt())).abs()
+    log(f"  torch.poisson on the card, lam {lam.tolist()}: |mean - lam| "
+        f"{[round(v, 3) for v in mean_z.tolist()]} and |var - lam| "
+        f"{[round(v, 3) for v in var_z.tolist()]} standard errors ({n} draws each)")
+    if not bool((d == d.round()).all()) or bool((mean_z > POISSON_SE).any()) or bool(
+            (var_z > POISSON_SE).any()):
+        raise AssertionError("torch.poisson on the card does not have Poisson moments")
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    clean = 0.2 * torch.rand((2, 64, 64, 4), device=dev, generator=g)
+    noisy = clean + 0.01
+    iso, ratio = torch.tensor([800, 800], device=dev), torch.tensor([250.0, 100.0], device=dev)
+    wb = torch.tensor([[0.5, 0.25, 0.4, 0.25], [0.0, 0.0, 0.0, 0.0]], device=dev)
+    out, clean2 = sna.apply_sna(torch.Generator(device=dev).manual_seed(2), noisy, clean, iso,
+                                ratio, wb)
+    k = sna.kmax_for_iso(iso, sna.draw_jitter(torch.Generator(device=dev).manual_seed(2), 2))
+    unit = float(k[0] * ratio[0] / (sna.WP - sna.BL))
+    steps = ((out[0].double() - noisy[0].double()) / unit)
+    off = float((steps - steps.round()).abs().max())
+    if off > 1e-2 or not torch.equal(out[1], noisy[1]) or not torch.equal(clean2[1], clean[1]):
+        raise AssertionError(f"apply_sna on the card: increment off the lattice by {off}, or a "
+                             "sample without gains changed")
+    log(f"  apply_sna on the card: increments on the lattice (max {off:.2e} off), mean "
+        f"{float(steps.mean()):.3f} units; the sample without gains passes through bit for bit")
+
+
+def _lsid_step(dtype, dev, sd, batch):
+    import torch
+
+    from noisediff_tpu_torch.models import LSID
+    from noisediff_tpu_torch.train.state import make_denoising_train_step, make_optimizer
+
+    model = LSID(dtype=dtype)
+    model.load_state_dict(sd)
+    model = model.to(dev, memory_format=torch.channels_last).train()
+    step = make_denoising_train_step(model, make_optimizer(model.parameters(), lr=2e-4),
+                                     augment_flip=False, use_sna=False)
+    metrics = step({k: v.to(dev) for k, v in batch.items()}, torch.Generator(device=dev))
+    return float(metrics["loss_sum"]), {n: p.grad.float().cpu()
+                                        for n, p in model.named_parameters()}
+
+
+def phase_denoise_check(seed: int):
+    """One LSID training step from make_denoising_train_step (flip and SNA
+    off) at B 2, 256^2 on the card against the same step on the CPU, in
+    fp32 on both and in bf16 on the card (DENOISE_* bounds)."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.models import LSID
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.manual_seed(seed)
+    sd = LSID().state_dict()
+    rng = np.random.default_rng(seed)
+    b, s = 2, DENOISE_CROP
+    clean = rng.uniform(0, 0.4, (b, s, s, 4)).astype(np.float32)
+    noisy = np.clip(clean + rng.normal(0, 0.05, clean.shape), 0, 1).astype(np.float32)
+    batch = {"noisy_img": torch.from_numpy(noisy), "clean_img": torch.from_numpy(clean),
+             "iso": torch.tensor([800, 800]), "ratio": torch.tensor([250.0, 250.0])}
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    loss32, g32 = _lsid_step(None, cpu, sd, batch)
+    loss16, g16 = _lsid_step(torch.bfloat16, cpu, sd, batch)
+    reset_launch_counts()
+    loss_c32, gc32 = _lsid_step(None, card, sd, batch)
+    loss_c16, gc16 = _lsid_step(torch.bfloat16, card, sd, batch)
+    if any(launch_counts().values()):
+        raise AssertionError(f"denoise_check: a kernel of the port ran: {launch_counts()}")
+    worst32 = max((rel_l2(gc32[n], g32[n]), n) for n in g32)
+    log(f"  fp32: loss card {loss_c32:.7f}, CPU {loss32:.7f}; worst parameter gradient rel L2 "
+        f"{worst32[0]:.3g} ({worst32[1]}); bounds {DENOISE_FP32_LOSS} relative on the loss, "
+        f"{DENOISE_FP32_GRAD} per gradient")
+    if abs(loss_c32 - loss32) > DENOISE_FP32_LOSS * abs(loss32) or worst32[0] > DENOISE_FP32_GRAD:
+        raise AssertionError(f"denoise_check: fp32 step disagrees with the CPU: {worst32}")
+    out = _check_grads("denoise_check bf16", b, s, loss_c16, gc16, loss16, g16, g32, "LSID")
+    out.update(loss_card_fp32=loss_c32, loss_cpu_fp32=loss32, loss_card_bf16=loss_c16,
+               loss_cpu_bf16=loss16, worst_fp32=worst32)
+
+    # the opt-in conv_wgrad route (NOISEDIFF_WGRAD=pallas), as the JAX
+    # model's convs take it: against the CPU's steps and the cuDNN-wgrad step
+    os.environ["NOISEDIFF_WGRAD"] = "pallas"
+    try:
+        loss_w, gw = _lsid_step(torch.bfloat16, card, sd, batch)
+    finally:
+        del os.environ["NOISEDIFF_WGRAD"]
+    routed = launch_counts()["conv_wgrad"]
+    if routed == 0:
+        raise AssertionError("denoise_check: no conv_wgrad launch under NOISEDIFF_WGRAD=pallas")
+    out["wgrad"] = _check_grads("denoise_check wgrad", b, s, loss_w, gw, loss16, g16, g32, "LSID")
+    worst = max((rel_l2(gw[n], gc16[n]), n) for n in gw)
+    log(f"  with NOISEDIFF_WGRAD=pallas ({routed} conv_wgrad launches): worst parameter "
+        f"gradient vs the cuDNN-wgrad step rel L2 {worst[0]:.4g} ({worst[1]})")
+    if worst[0] > GRAD_REL:
+        raise AssertionError(f"denoise_check: conv_wgrad gradients disagree with cuDNN's: {worst}")
+    return out
+
+
+def phase_denoise(seed: int, workdir: str, gen_dir: str):
+    """Stage 2 of the pipeline on the card: LSID trained through the
+    denoising CLI at script.sh:24's config on the main phase's own
+    generated patches (linked into <synthetic>/ISO800_Ratio250), the dark
+    shading subtracted with resources made from the seed."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.cli import train_denoising
+    from noisediff_tpu_torch.models import LSID
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    files = sorted(glob.glob(os.path.join(gen_dir, "*.npy")))
+    if len(files) != N_BATCHES * BATCH:
+        raise AssertionError(f"denoise: {len(files)} generated patches, expected "
+                             f"{N_BATCHES * BATCH}")
+    synth = os.path.join(workdir, "synthetic", "ISO800_Ratio250")
+    os.makedirs(synth)
+    for f in files:
+        os.link(f, os.path.join(synth, os.path.basename(f)))
+    res = make_denoise_resources(workdir, seed)
+    out = os.path.join(workdir, "denoise", "weights")
+    argv = [
+        "--loss_l1", "--crop_size", str(DENOISE_CROP), "--sub_darkshading", "--use_sna",
+        "--trainset", "SyntheticNoisDiffDenoisingDataset", "--batch_size", str(DENOISE_BATCH),
+        "--net_name", "LSID", "--name", "train_denoising", "--max_iter", str(DENOISE_EPOCHS),
+        "--save_epoch_freq", str(DENOISE_SAVE_FREQ), "--random_seed", str(seed),
+        "--device", "cuda", "--num_workers", "4", "--sid_folder", os.path.join(workdir, "SID"),
+        "--synthetic_folder", os.path.dirname(synth), "--resources_path", res,
+        "--save_folder", out,
+    ]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    summary = train_denoising.main(argv)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    per_epoch = len(files) // DENOISE_BATCH
+    steps = summary["steps"]
+    if steps != per_epoch * DENOISE_EPOCHS or not all(np.isfinite(summary["losses"])):
+        raise AssertionError(f"denoise: {steps} steps, losses {summary['losses']}")
+    if any(counts.values()):
+        raise AssertionError(f"denoise: a kernel of the port ran on the LSID path: {counts}")
+    snap = os.path.join(out, "train_denoising", "snapshot")
+    want = {f"{c}_{e}.pth" for c in ("net", "optimizer_G")
+            for e in range(0, DENOISE_EPOCHS, DENOISE_SAVE_FREQ)} | {"net_final.pth"}
+    if set(os.listdir(snap)) != want:
+        raise AssertionError(f"denoise: snapshots {sorted(os.listdir(snap))}")
+    LSID().load_state_dict(torch.load(os.path.join(snap, "net_final.pth"), map_location="cpu",
+                                      weights_only=True), strict=True)
+    # the card's clock: from the end of each step to the end of the next one
+    # in the same epoch (the loader wait and upload between them included),
+    # from the end of the third step on; and each step from its start mark
+    # (before its upload) to its end
+    ends, secs = summary["step_end_seconds"], summary["step_seconds"]
+    gaps = [ends[i + 1] - ends[i] for i in range(2, steps - 1) if (i + 1) % per_epoch]
+    period = float(np.mean(gaps))
+    step_s = float(np.mean(secs[3:]))
+    wall = summary["epoch_seconds"]
+    log(f"  {steps} steps ({DENOISE_EPOCHS} epochs of {per_epoch}) on {len(files)} generated "
+        f"patches, losses {summary['losses'][0]:.5f} -> {summary['losses'][-1]:.5f}")
+    log(f"  after the first 3 steps, on the card's clock: {1 / period:.4f} steps/s, "
+        f"{DENOISE_BATCH / period:.4f} samples/s (end to end within an epoch, loader wait and "
+        f"upload included: {period * 1e3:.4f} ms); step start to end {step_s * 1e3:.4f} ms")
+    log(f"  epoch wall seconds (loader start-up, the epoch's sync and snapshots included): "
+        f"first {wall[0]:.4f}, median {statistics.median(wall):.4f}; the whole run "
+        f"{sum(wall):.4f} s, {steps / sum(wall):.4f} steps/s; host time waiting for the "
+        f"loader {sum(summary['loader_wait_seconds']):.4f} s over the run")
+    log(f"  peak device memory {peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated); "
+        f"snapshots {sorted(want)}; net_final.pth loads into LSID strictly; no kernel launched")
+    # what one item costs the host, in one thread (clean frames cached)
+    from noisediff_tpu_torch.data.datasets import DataPaths, SyntheticNoisDiffDenoisingDataset
+
+    ds = SyntheticNoisDiffDenoisingDataset(
+        DataPaths(data_folder=os.path.join(workdir, "SID"), synthetic_folder=os.path.dirname(synth),
+                  resources_path=res), DENOISE_CROP, sub_darkshading=True, seed=seed)
+    for i in range(len(ds)):
+        ds[i]
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    item_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+    log(f"  one item of the dataset on the host, one thread: {item_ms:.4f} ms")
+    return dict(steps=steps, period_ms=period * 1e3, steps_per_s=1 / period,
+                samples_per_s=DENOISE_BATCH / period, run_steps_per_s=steps / sum(wall),
+                item_ms=item_ms,
+                step_ms=step_s * 1e3, peak_bytes=peak, losses=summary["losses"],
+                epoch_seconds=wall)
+
+
+def phase_denoise_profile(seed: int, cli_period_ms: float):
+    """One denoising step at script.sh:24's shape (LSID bf16, B 4, 256^2,
+    flip and SNA on, L1, Adam), the batch on the card: the period over
+    DENOISE_PROFILE_STEPS steps with no host sync, the device busy time by
+    kernel class (torch.profiler) and the idle share."""
+    import torch
+
+    from noisediff_tpu_torch.models import LSID
+    from noisediff_tpu_torch.train.state import make_denoising_train_step, make_optimizer
+
+    torch.manual_seed(seed)
+    dev = torch.device("cuda")
+    model = LSID(dtype=torch.bfloat16).to(dev, memory_format=torch.channels_last).train()
+    step = make_denoising_train_step(model, make_optimizer(model.parameters(), lr=2e-4),
+                                     use_sna=True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (DENOISE_BATCH, DENOISE_CROP, DENOISE_CROP, 4)
+    clean = 0.3 * torch.rand(shape, generator=g, device=dev)
+    batch = {"clean_img": clean, "noisy_img": (clean + 0.02 * torch.randn(
+        shape, generator=g, device=dev)).clamp(0, 1),
+        "iso": torch.full((DENOISE_BATCH,), 800, device=dev),
+        "ratio": torch.full((DENOISE_BATCH,), 250.0, device=dev)}
+    for _ in range(3):
+        step(batch, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DENOISE_PROFILE_STEPS):
+        step(batch, g)
+    torch.cuda.synchronize()
+    period = (time.perf_counter() - t0) * 1e3 / DENOISE_PROFILE_STEPS
+    # the host's time for one step queued behind a sleep of ~1 s: a step
+    # that waited for the card anywhere would wait for the sleep. One step
+    # only: a few steps' ~400 launches each fill the launch queue, which
+    # then holds the host back without any synchronisation
+    torch.cuda._sleep(2_000_000_000)
+    t0 = time.perf_counter()
+    step(batch, g)
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    log(f"  host time of one step with the card kept busy: {host:.4f} ms")
+    if host > 500:
+        raise AssertionError(f"denoise profile: the step waits for the card ({host} ms)")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(DENOISE_PROFILE_STEPS):
+            step(batch, g)
+        torch.cuda.synchronize()
+    by_name = _device_ms_by_name(prof, DENOISE_PROFILE_STEPS)
+    busy = sum(by_name.values())
+    kernels = sum(e.count for e in _device_events(prof)) / DENOISE_PROFILE_STEPS
+    # CUDA runtime calls inside the steps that would wait for the card (the
+    # device-wide synchronize after them, and the profiler's own, aside)
+    waits = {e.key: e.count for e in prof.key_averages() if e.key in (
+        "cudaStreamSynchronize", "cudaEventSynchronize", "cudaMemcpy")}
+    if waits:
+        raise AssertionError(f"denoise profile: runtime calls that wait for the card: {waits}")
+    log(f"  one step ({DENOISE_BATCH}x{DENOISE_CROP}^2, LSID bf16, SNA, Adam), batch on the "
+        f"card, no sync: {period:.4f} ms per step over {DENOISE_PROFILE_STEPS} steps "
+        f"({kernels:g} device kernels and copies a step, {1e3 * period / max(kernels, 1):.2f} "
+        f"us of host time each; no runtime call inside the steps waits for the card); the CLI "
+        f"run: {cli_period_ms:.4f}")
+    if not by_name:
+        log("  torch.profiler recorded no device time")
+        return dict(period_ms=period, host_ms=host)
+    log(f"  device busy {busy:.4f} ms per step (torch.profiler); idle share: batch on the card "
+        f"{max(0.0, 1 - busy / period):.4f}, CLI {max(0.0, 1 - busy / cli_period_ms):.4f}")
+    cats = {}
+    for name, ms in by_name.items():
+        cats[_category(name)] = cats.get(_category(name), 0.0) + ms
+    for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {cat}")
+    log("  top kernels:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {ms:9.4f} ms  {name[:110]}")
+    return dict(period_ms=period, host_ms=host, busy_ms=busy, categories=cats, kernels=kernels)
+
+
 KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
                    "fused_dual_head", "fused_ddim_head_update", "gn_stats", "gn_grad_stats",
                    "conv_wgrad", "flash_attention")
@@ -1901,8 +2246,17 @@ def main(argv=None) -> int:
                                 ["--sampler", "dpm", "--no_mixed_precision"]),
                        {k: 0 for k in KERNEL_WRAPPERS}, "fp32 generation")
         log(f"  {N_BATCHES} batches of {BATCH} patches, fp32, no kernel launched")
+        log("[denoise] LSID trained through the denoising CLI on the main phase's patches")
+        denoise = phase_denoise(args.seed, workdir, os.path.join(
+            workdir, "out", "ISO800_Ratio250", "npy", "generated"))
+        log("[denoise] SNA's Poisson draw on the card")
+        check_poisson_on_card()
+        log("[denoise profile] where a denoising step spends its time")
+        phase_denoise_profile(args.seed, denoise["period_ms"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log("[denoise_check] one LSID training step, card vs CPU")
+    phase_denoise_check(args.seed)
     log("[train_check] full-width training step, card vs CPU")
     phase_train_check(args.seed)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")

@@ -1,16 +1,22 @@
-"""The diffusion-stage datasets of the reference, host-side.
+"""The datasets of the reference, host-side.
 
-Port of the diffusion-stage subset of noisediff_tpu/data/datasets.py:
-  SonyTrainDataset              reference dataloader/dataset.py:29-145
-  NoiseImageGenerationDataset   reference dataloader/dataset.py:152-281
-  GenDarkFrameDataset           dataset.py:293-415
+Port of noisediff_tpu/data/datasets.py:
+  SonyTrainDataset                  reference dataloader/dataset.py:29-145
+  NoiseImageGenerationDataset       reference dataloader/dataset.py:152-281
+  GenDarkFrameDataset               dataset.py:293-415
+  SyntheticNoisDiffDenoisingDataset dataloader/dataset_denoising.py:29-168
+  RealSonyDenoisingDataset          dataset_denoising.py:172-265
+  PossionGaussianDenoisingDataset   dataset_denoising.py:271-372
 Items are dicts of numpy arrays and python scalars with the reference's key
-names, images HWC float32, so the trainer and the npy export contract line
-up with the JAX package's.
+names, images HWC float32, so the trainers and the npy export contract line
+up with the JAX package's. Every item's draws come from its (seed, epoch,
+index) generator, and the arithmetic is the JAX package's, so an item equals
+the JAX dataset's array for array on the same tree and seed.
 """
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 import pickle
 from typing import Dict, List, Optional, Tuple
@@ -20,7 +26,17 @@ import numpy as np
 from ..ops.coords import crop_coord_patch
 from . import manifest
 from .iso_ratio_mapping import COMBINATION_MAPPING
-from .raw_host import load_packed, make_noise_pair, open_bayer
+from .raw_host import (
+    SCALE,
+    Darkshading,
+    PackedFrameCache,
+    load_packed,
+    load_packed_frame,
+    make_noise_pair,
+    np_pack_bayer,
+    np_unpack_bayer,
+    open_bayer,
+)
 
 
 @dataclasses.dataclass
@@ -254,8 +270,196 @@ class GenDarkFrameDataset(_EpochSeeded):
         }
 
 
+# ---------------------------------------------------------------------------
+# Denoising-stage datasets
+# ---------------------------------------------------------------------------
+
+
+class SyntheticNoisDiffDenoisingDataset(_EpochSeeded):
+    """Clean frames plus generated noise patches (dataset_denoising.py:29-168).
+
+    <synthetic_folder>/ISO{iso}_Ratio{ratio}/'clean+noisy+x_y.npy' holds
+    the noise the generation CLI wrote (CHW, or HWC) at packed (x, y) of
+    the clean frame <data_folder>/Sony/long/clean*; the clean frames come
+    through a PackedFrameCache (memmaps under cache_dir when set) in place
+    of the reference's RAM preload. With sub_darkshading the noisy patch
+    loses the PMN dark shading of its ISO at its place in the frame."""
+
+    def __init__(self, paths: DataPaths, crop_size: int, sub_darkshading: bool = False,
+                 seed: int = 0):
+        super().__init__(seed)
+        self.paths = paths
+        self.crop_size = crop_size
+        self.sub_darkshading = sub_darkshading
+        self.cache = PackedFrameCache(paths.cache_dir)
+        self.darkshading = Darkshading(paths.resources_path) if sub_darkshading else None
+
+        self.clean_paths = {
+            os.path.basename(p).split(".ARW")[0].split(".npy")[0]: p
+            for p in sorted(glob.glob(os.path.join(paths.long_dir(), "*")))
+            if ".ARW" in p or p.endswith(".npy")
+        }
+        pair_list = []
+        for subfolder in sorted(os.listdir(paths.synthetic_folder)):
+            full = os.path.join(paths.synthetic_folder, subfolder)
+            if not os.path.isdir(full):
+                continue
+            iso_value, ratio_value = manifest.parse_synthetic_folder_name(subfolder)
+            for noise_path in sorted(glob.glob(os.path.join(full, "*.npy"))):
+                clean, _noisy, x, y = manifest.parse_npy_patch_name(os.path.basename(noise_path))
+                pair_list.append((clean, noise_path, x, y, iso_value, ratio_value))
+        self.pair_list = pair_list
+
+    def __len__(self) -> int:
+        return len(self.pair_list)
+
+    def _remove_darkshading(self, noisy_hwc, iso, ratio, x, y):
+        """HWC mirror of dataset_denoising.py:80-118."""
+        ph, pw = noisy_hwc.shape[:2]
+        bayer = np_unpack_bayer(noisy_hwc)
+        bayer = bayer / ratio
+        bayer = np.clip(bayer * SCALE + 512.0, 0.0, 16383.0)
+        ds = self.darkshading.get(iso)
+        bx, by = 2 * x, 2 * y
+        bayer = bayer - ds[by: by + 2 * ph, bx: bx + 2 * pw]
+        out = np_pack_bayer(bayer)
+        out = np.maximum(out - 512.0, 0.0) / SCALE
+        return np.clip(out * ratio, 0.0, 1.0)
+
+    def __getitem__(self, idx: int) -> dict:
+        clean_name, noise_path, x, y, iso, ratio = self.pair_list[idx]
+        rng = self.rng(idx)
+
+        noise = np.load(noise_path)
+        if noise.ndim == 3 and noise.shape[0] == 4:  # the generation CLI's CHW export
+            noise = noise.transpose(1, 2, 0)
+        noise = np.clip(noise, -1.0, 1.0).astype(np.float32)
+
+        # the patch size is the npy's own (512 in the shipped pipeline,
+        # which dataset_denoising.py:137 hard-codes)
+        ph, pw = noise.shape[:2]
+        clean_full = self.cache.get(self.clean_paths[clean_name])
+        clean = np.asarray(clean_full[y: y + ph, x: x + pw], np.float32)
+        noisy = np.clip(noise + clean, 0.0, 1.0)
+        clean = np.clip(clean, 0.0, 1.0)
+
+        if self.sub_darkshading:
+            noisy = self._remove_darkshading(noisy, iso, ratio, x, y)
+        noisy = np.clip(noisy, 0.0, 1.0).astype(np.float32)
+
+        # random even-aligned crop (dataset_denoising.py:120-130)
+        cs = self.crop_size
+        ih, iw = noisy.shape[:2]
+        cx = int(rng.integers(0, iw - cs + 1)) // 2 * 2
+        cy = int(rng.integers(0, ih - cs + 1)) // 2 * 2
+        return {
+            "noisy_img": noisy[cy: cy + cs, cx: cx + cs],
+            "clean_img": clean[cy: cy + cs, cx: cx + cs],
+            "iso": iso,
+            "ratio": ratio,
+        }
+
+
+class RealSonyDenoisingDataset(_EpochSeeded):
+    """Real short/long SID pairs (dataset_denoising.py:172-265): the noisy
+    frame stays in DN through the optional darkshading subtraction, then is
+    multiplied by the ratio, clipped to [0, white - black] and normalised."""
+
+    def __init__(self, paths: DataPaths, crop_size: int, sub_darkshading: bool = False,
+                 seed: int = 0):
+        super().__init__(seed)
+        self.paths = paths
+        self.crop_size = crop_size
+        self.sub_darkshading = sub_darkshading
+        self.entries = manifest.parse_sid_list(paths.train_list)
+        self.darkshading = Darkshading(paths.resources_path)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, idx: int) -> dict:
+        e = self.entries[idx]
+        rng = self.rng(idx)
+        clean = load_packed_frame(os.path.join(self.paths.data_folder, e.gt_path), rescale=True)
+        noisy = load_packed_frame(os.path.join(self.paths.data_folder, e.in_path),
+                                  rescale=False)
+
+        cs = self.crop_size
+        ih, iw = noisy.shape[:2]
+        x = int(rng.integers(0, iw - cs + 1)) // 2 * 2
+        y = int(rng.integers(0, ih - cs + 1)) // 2 * 2
+        clean = clean[y: y + cs, x: x + cs]
+        noisy = noisy[y: y + cs, x: x + cs]
+
+        if self.sub_darkshading:
+            ds = np_pack_bayer(self.darkshading.get(e.iso))
+            noisy = noisy - ds[y: y + cs, x: x + cs]
+
+        noisy = np.clip(noisy * e.ratio, 0.0, SCALE) / SCALE
+        return {
+            "noisy_img": noisy.astype(np.float32),
+            "clean_img": clean.astype(np.float32),
+            "iso": e.iso,
+            "ratio": e.ratio,
+        }
+
+
+def _truncnorm(rng: np.random.Generator, mean, var, lo, hi):
+    """Rejection-sampled truncated normal (in place of scipy.stats.truncnorm,
+    dataset_denoising.py:323-329; the +-30% window makes rejection cheap)."""
+    std = np.sqrt(var)
+    for _ in range(1000):
+        v = rng.normal(mean, std)
+        if lo <= v <= hi:
+            return v
+    return float(np.clip(rng.normal(mean, std), lo, hi))
+
+
+class PossionGaussianDenoisingDataset(_EpochSeeded):
+    """The classical Poisson-Gaussian baseline (dataset_denoising.py:271-372):
+    per-ISO (K, VAR) from <pretrained_dir>/noise_profile_all.pkl, each
+    jittered within +-30% by a truncated normal. Items carry no iso or
+    ratio."""
+
+    def __init__(self, paths: DataPaths, crop_size: int, seed: int = 0):
+        super().__init__(seed)
+        self.paths = paths
+        self.crop_size = crop_size
+        self.entries = manifest.parse_sid_list(paths.train_list)
+        with open(os.path.join(paths.pretrained_dir, "noise_profile_all.pkl"), "rb") as f:
+            self.noise_profile = pickle.load(f)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, idx: int) -> dict:
+        e = self.entries[idx]
+        rng = self.rng(idx)
+        clean = load_packed_frame(os.path.join(self.paths.data_folder, e.gt_path), rescale=False)
+        cs = self.crop_size
+        ih, iw = clean.shape[:2]
+        x = int(rng.integers(0, iw - cs + 1)) // 2 * 2
+        y = int(rng.integers(0, ih - cs + 1)) // 2 * 2
+        clean = clean[y: y + cs, x: x + cs]
+
+        K, VAR = self.noise_profile[e.iso]
+        k = _truncnorm(rng, K, 1.0, 0.7 * K, 1.3 * K)
+        var = _truncnorm(rng, VAR, 1.0, 0.7 * VAR, 1.3 * VAR)
+        latent = clean / float(e.ratio)
+        poisson = k * rng.poisson(np.maximum(latent / k, 0.0)).astype(np.float32)
+        gaussian = rng.normal(0.0, np.sqrt(var), clean.shape).astype(np.float32)
+        noisy = np.clip((poisson + gaussian) * e.ratio, 0.0, SCALE)
+        return {
+            "clean_img": (clean / SCALE).astype(np.float32),
+            "noisy_img": (noisy / SCALE).astype(np.float32),
+        }
+
+
 DATASETS = {
     "SonyTrainDataset": SonyTrainDataset,
     "NoiseImageGenerationDataset": NoiseImageGenerationDataset,
     "GenDarkFrameDataset": GenDarkFrameDataset,
+    "SyntheticNoisDiffDenoisingDataset": SyntheticNoisDiffDenoisingDataset,
+    "RealSonyDenoisingDataset": RealSonyDenoisingDataset,
+    "PossionGaussianDenoisingDataset": PossionGaussianDenoisingDataset,
 }

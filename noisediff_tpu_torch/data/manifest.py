@@ -6,7 +6,10 @@ Port of the generation subset of noisediff_tpu/data/manifest.py:
     dataloader/dataset.py:48-64);
   * the overlapping patch grid, step = ps - ps//4 over the packed frame
     (dataset.py:203-219) — its (x, y) order is load-bearing for the
-    'clean+noisy+x_y.npy' names the denoising stage reads.
+    'clean+noisy+x_y.npy' names the denoising stage reads;
+  * that cross-stage filename contract itself (`npy_patch_name`, written by
+    the generation trainer, parsed by the denoising dataset) and the
+    'ISO800_Ratio250' folder names of the generated data.
 """
 from __future__ import annotations
 
@@ -80,3 +83,25 @@ def patch_grid(
     if w - (w_space[-1] + ps) < thresh:
         w_space = np.append(w_space, w - ps)
     return [(int(x), int(y)) for y in h_space for x in w_space]
+
+
+def npy_patch_name(clean_name: str, noisy_name: str, x: int, y: int) -> str:
+    """'clean+noisy+x_y.npy' cross-stage filename contract
+    (trainer_diffusion.py:308-317 / dataset_denoising.py:58-61)."""
+    clean = clean_name.split(".ARW")[0]
+    noisy = noisy_name.split(".ARW")[0]
+    return f"{clean}+{noisy}+{int(x)}_{int(y)}.npy"
+
+
+def parse_npy_patch_name(name: str) -> Tuple[str, str, int, int]:
+    """'clean+noisy+x_y.npy' -> (clean, noisy, x, y)."""
+    stem = name[:-4] if name.endswith(".npy") else name
+    clean, noisy, coord = stem.split("+")
+    x, y = coord.split("_")
+    return clean, noisy, int(x), int(y)
+
+
+def parse_synthetic_folder_name(subfolder: str) -> Tuple[int, int]:
+    """'ISO800_Ratio250' -> (800, 250) (dataset_denoising.py:47-52)."""
+    iso_s, ratio_s = subfolder.split("_")
+    return int(iso_s.replace("ISO", "")), int(ratio_s.replace("Ratio", ""))

@@ -1,4 +1,5 @@
-"""Host-side raw ingestion: decode, numpy packing, training noise pairs.
+"""Host-side raw ingestion: decode, numpy packing, training noise pairs,
+the packed-frame cache and the PMN dark-shading resources.
 
 Port of the generation and training subset of noisediff_tpu/data/raw_host.py
 and of `make_noise_pair` (noisediff_tpu/data/native.py:94-125). A `.npy`
@@ -9,6 +10,8 @@ real raw file has to be decoded. Packing is numpy (raw_util.py:17-35).
 from __future__ import annotations
 
 import os
+import pickle
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -29,6 +32,17 @@ def np_pack_raw(bayer: np.ndarray, rescale: bool = True) -> np.ndarray:
     if rescale:
         im = im / SCALE
     return np_pack_bayer(im)
+
+
+def np_unpack_bayer(packed: np.ndarray) -> np.ndarray:
+    """(h, w, 4) [R, G1, B, G2] -> (2h, 2w) Bayer mosaic, same units."""
+    h, w, _ = packed.shape
+    bayer = np.zeros((2 * h, 2 * w), packed.dtype)
+    bayer[0::2, 0::2] = packed[..., 0]
+    bayer[0::2, 1::2] = packed[..., 1]
+    bayer[1::2, 1::2] = packed[..., 2]
+    bayer[1::2, 0::2] = packed[..., 3]
+    return bayer
 
 
 def _sidecar(path: str):
@@ -73,6 +87,20 @@ def load_packed(path: str, rescale: bool = True) -> np.ndarray:
     return np_pack_raw(decode_bayer(path), rescale=rescale)
 
 
+def pack_frame(bayer: np.ndarray, rescale: bool = True, black: float = BLACK_LEVEL,
+               white: float = WHITE_POINT) -> np.ndarray:
+    """A Bayer mosaic (a frame or a crop) packed as the JAX package's native
+    library packs it (csrc/noisediff_host.cpp, what its `load_packed` and
+    `make_noise_pair` run): the mosaic as uint16, (v - black) clamped at 0,
+    times the float32 reciprocal of (white - black) when `rescale`."""
+    f32 = np.float32
+    v = np_pack_bayer(np.asarray(bayer).astype(np.uint16, copy=False).astype(f32)) - f32(black)
+    v = np.maximum(v, f32(0.0))
+    if rescale:
+        v = v * (f32(1.0) / f32(white - black))
+    return v.astype(f32)
+
+
 def make_noise_pair(bayer_in: np.ndarray, bayer_gt: np.ndarray, cy: int, cx: int, ch: int,
                     cw: int, ratio: float, black: float = BLACK_LEVEL,
                     white: float = WHITE_POINT):
@@ -82,16 +110,78 @@ def make_noise_pair(bayer_in: np.ndarray, bayer_gt: np.ndarray, cy: int, cx: int
     Crops the Bayer region first and packs only the crop, as the JAX
     package's native library does; every step is per pixel, so the numbers
     equal pack-then-crop. The arithmetic is the native kernel's, in
-    float32: (v - black) clamped at 0 times 1 / (white - black); the noisy
-    frame times ratio clipped to [0, 1]; noise = noisy - clean."""
+    float32 (`pack_frame`); the noisy frame times ratio clipped to [0, 1];
+    noise = noisy - clean."""
     f32 = np.float32
-    inv = f32(1.0) / f32(white - black)
 
     def packed_crop(bayer):
-        region = np.asarray(bayer[2 * cy: 2 * (cy + ch), 2 * cx: 2 * (cx + cw)], np.float32)
-        v = np_pack_bayer(region) - f32(black)
-        return np.where(v < 0, f32(0.0), v * inv).astype(np.float32)
+        return pack_frame(bayer[2 * cy: 2 * (cy + ch), 2 * cx: 2 * (cx + cw)], black=black,
+                          white=white)
 
     noisy = np.clip(packed_crop(bayer_in) * f32(ratio), f32(0.0), f32(1.0))
     clean = packed_crop(bayer_gt)
     return noisy, clean, noisy - clean
+
+
+def load_packed_frame(path: str, rescale: bool = True) -> np.ndarray:
+    """decode + `pack_frame`: the denoising datasets' frames, equal to the
+    JAX package's."""
+    return pack_frame(decode_bayer(path), rescale=rescale)
+
+
+class PackedFrameCache:
+    """Packed clean frames by name, in memory or as memmaps of packed
+    float32 `.npy` files under cache_dir (written on first access), in
+    place of the reference's whole-dataset RAM preload
+    (dataset_denoising.py:36-43)."""
+
+    def __init__(self, cache_dir: Optional[str] = None):
+        self.cache_dir = cache_dir
+        self._mem: Dict[str, np.ndarray] = {}
+        if cache_dir:
+            os.makedirs(cache_dir, exist_ok=True)
+
+    def get(self, path: str) -> np.ndarray:
+        key = os.path.basename(path).split(".ARW")[0].split(".npy")[0]
+        if key in self._mem:
+            return self._mem[key]
+        if self.cache_dir:
+            cpath = os.path.join(self.cache_dir, key + ".packed.npy")
+            if not os.path.exists(cpath):
+                np.save(cpath, load_packed_frame(path))
+            arr = np.load(cpath, mmap_mode="r")
+        else:
+            arr = load_packed_frame(path)
+        self._mem[key] = arr
+        return arr
+
+
+class Darkshading:
+    """PMN dark-shading resources (raw_util.py:87-109) under resources_path:
+    darkshading_{high,low}ISO_{k,b}.npy and darkshading_BLE.pkl. `get(iso)`
+    is the full-resolution Bayer-domain map ds_k * iso + ds_b + BLE[iso],
+    from the high-ISO pair above ISO 1600 and the low-ISO pair otherwise."""
+
+    def __init__(self, resources_path: str):
+        self.resources_path = resources_path
+        self._loaded = False
+
+    def _load(self):
+        if self._loaded:
+            return
+        rp = self.resources_path
+        with open(os.path.join(rp, "darkshading_BLE.pkl"), "rb") as f:
+            self.blc_mean = pickle.load(f)
+        self.ds_k_high = np.load(os.path.join(rp, "darkshading_highISO_k.npy"), allow_pickle=True)
+        self.ds_b_high = np.load(os.path.join(rp, "darkshading_highISO_b.npy"), allow_pickle=True)
+        self.ds_k_low = np.load(os.path.join(rp, "darkshading_lowISO_k.npy"), allow_pickle=True)
+        self.ds_b_low = np.load(os.path.join(rp, "darkshading_lowISO_b.npy"), allow_pickle=True)
+        self._loaded = True
+
+    def get(self, iso: int) -> np.ndarray:
+        self._load()
+        if iso > 1600:
+            ds_k, ds_b = self.ds_k_high, self.ds_b_high
+        else:
+            ds_k, ds_b = self.ds_k_low, self.ds_b_low
+        return ds_k * iso + ds_b + self.blc_mean[iso]

@@ -1,7 +1,8 @@
 """Network registry, keyed by the reference `--net_name` strings.
 
-Port of noisediff_tpu/models/__init__.py. Only NoiseDiffNet is ported so far;
-the other names raise until their slice lands (ROADMAP.md, Queue 1).
+Port of noisediff_tpu/models/__init__.py. NoiseDiffNet and LSID are
+ported; the UNet_PosEmbV2 family raises until its slice lands (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
@@ -9,13 +10,13 @@ from typing import Optional
 
 import torch
 
+from .lsid import LSID
 from .noisediff_net import NoiseDiffNet, is_unread_parameter
 
 _NOT_YET_PORTED = (
     "UNet_PosEmbV2",
     "UNet_PosEmbV2_NoPosition",
     "UNet_PosEmbV2_CameraCond",
-    "LSID",
 )
 
 
@@ -23,11 +24,14 @@ def define_network(net_name: str, cfg, dtype: Optional[torch.dtype] = None):
     """Instantiate a network by its reference CLI name (`--net_name`)."""
     if net_name == "NoiseDiffNet":
         return NoiseDiffNet(dim=cfg.dim, channels=cfg.inp_dim, dtype=dtype)
+    if net_name == "LSID":
+        # --lsid_width: the JAX package's extension (default 32 = the reference)
+        return LSID(dtype=dtype, base_width=getattr(cfg, "lsid_width", 32))
     if net_name in _NOT_YET_PORTED:
         raise NotImplementedError(
             f"{net_name} is not ported to noisediff_tpu_torch yet (see ROADMAP.md, Queue 1)"
         )
-    raise ValueError(f"{net_name} is not found. Available: ['NoiseDiffNet']")
+    raise ValueError(f"{net_name} is not found. Available: ['LSID', 'NoiseDiffNet']")
 
 
-__all__ = ["NoiseDiffNet", "define_network", "is_unread_parameter"]
+__all__ = ["LSID", "NoiseDiffNet", "define_network", "is_unread_parameter"]

@@ -1,7 +1,8 @@
-"""Optimizer and diffusion train step.
+"""Optimizer and the train steps of both stages.
 
 Port of noisediff_tpu/train/state.py (`make_optimizer`,
-`set_learning_rate`, `make_diffusion_train_step`): Adam with torch-default
+`set_learning_rate`, `make_diffusion_train_step`,
+`make_denoising_train_step`): Adam with torch-default
 betas (0.9, 0.999) and eps 1e-8. torch.optim.Adam's weight_decay adds
 wd * param to the gradient before the moment updates, which is exactly the
 JAX chain add_decayed_weights -> scale_by_adam. The learning rate is set
@@ -14,6 +15,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..diffusion.gaussian import GaussianDiffusion
+from ..ops import sna
 
 # --generation_result -> the batch key the diffusion learns to generate
 TARGET_KEYS = {"noise": "noise", "image": "noisy_img"}
@@ -59,5 +61,53 @@ def make_diffusion_train_step(diffusion: GaussianDiffusion, optimizer: torch.opt
         norm = grad_norm(params)
         optimizer.step()
         return {"diffusion_loss": loss.detach(), "grad_norm": norm}
+
+    return step
+
+
+def make_denoising_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                              loss_l1: bool = True, loss_mse: bool = False,
+                              lambda_l1: float = 1.0, lambda_mse: float = 1.0,
+                              use_sna: bool = False, augment_flip: bool = True) -> Callable:
+    """Returns step(batch, generator) -> {'mse_loss' and / or 'l1_loss',
+    'loss_sum', 'grad_norm'} (device scalars) for the denoiser: batch
+    'noisy_img' and 'clean_img' (B, H, W, 4), 'iso' and 'ratio' (B,).
+
+    From `generator` (on the batch's device), in order: one flip of the
+    whole batch along HEIGHT with probability 1/2 (the reference flips
+    NCHW dim 2, trainer_denoising.py:105-111), then with use_sna the
+    white-balance gains and Shot-Noise Augmentation (:207-217). Then the
+    model's output in fp32 against the clean image: the mean L1 times
+    lambda_l1 and / or the mean squared error times lambda_mse (:225-235),
+    their gradients and one Adam step. With neither loss on, the loss is 0
+    and so is every gradient, as in the JAX step."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    def step(batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        noisy, clean = batch["noisy_img"], batch["clean_img"]
+        if augment_flip:
+            flip = torch.rand((), generator=generator, device=generator.device) < 0.5
+            noisy = torch.where(flip, noisy.flip(1), noisy)
+            clean = torch.where(flip, clean.flip(1), clean)
+        if use_sna:
+            aug_wb = sna.sample_aug_wb(generator, clean.shape[0])
+            noisy, clean = sna.apply_sna(generator, noisy, clean, batch["iso"], batch["ratio"],
+                                         aug_wb)
+        optimizer.zero_grad(set_to_none=True)
+        out = model(noisy).float()
+        metrics = {}
+        if loss_mse:
+            metrics["mse_loss"] = torch.mean((out - clean) ** 2) * lambda_mse
+        if loss_l1:
+            metrics["l1_loss"] = torch.mean((out - clean).abs()) * lambda_l1
+        terms = list(metrics.values())
+        loss = sum(terms[1:], terms[0]) if terms else 0.0 * out.sum()
+        loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss_sum"] = loss.detach()
+        metrics["grad_norm"] = grad_norm(params)
+        optimizer.step()
+        return metrics
 
     return step

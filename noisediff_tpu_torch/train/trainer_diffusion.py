@@ -40,6 +40,7 @@ from ..cli.common import resolve_device, set_precision_flags
 from ..config import paths_from_args
 from ..data.datasets import DATASETS
 from ..data.loader import TrainLoader, generation_loader
+from ..data.manifest import npy_patch_name
 from ..diffusion.gaussian import GaussianDiffusion, default_dpm_steps
 from ..models import define_network
 from ..ops.schedules import make_schedule
@@ -371,7 +372,8 @@ class Trainer:
                 clean_name = batch["clean_name"][i].split(".ARW")[0].split(".npy")[0]
                 noisy_name = batch.get("noisy_name", batch["clean_name"])[i]
                 noisy_name = noisy_name.split(".ARW")[0].split(".npy")[0]
-                names.append(f"{clean_name}+{noisy_name}+{image_coord}.npy")
+                x, y = image_coord.split("_")
+                names.append(npy_patch_name(clean_name, noisy_name, int(x), int(y)))
             else:
                 iso_i, ratio_i = int(batch["iso"][i]), int(batch["ratio"][i])
                 names.append(f"{npy_num + i:05d}_{iso_i}_{ratio_i}+{image_coord}.npy")

@@ -9,6 +9,9 @@ is mapped by this module's own copy of the path rules of
 noisediff_tpu/train/torch_import.py, with the layout transforms inverted:
 
     conv kernels    HWIO -> OIHW     (transpose 3, 2, 0, 1)
+    LSID up6..up9   flip kh and kw, then (transpose 2, 3, 0, 1): the torch
+                    ConvTranspose2d weight is (in, out, kh, kw), and the
+                    flax/lax conv_transpose applies its kernel flipped
     dense kernels   (in, out) -> (out, in)
     norm scale      -> weight;  embedding -> weight
     RMSNorm g       (C,) -> (1, C, 1, 1)
@@ -41,6 +44,8 @@ _STAGE_SLOT = {"block1": "0", "block2": "1", "attn": "2", "down": "3", "up": "3"
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight",
          "g": "g"}
 _KEYSTR_RE = re.compile(r"\['([^']*)'\]")
+# LSID's torch ConvTranspose2d modules (noisediff_tpu/train/torch_import.py)
+_CONV_TRANSPOSE_NAMES = {"up6", "up7", "up8", "up9"}
 
 
 def torch_key(path: Tuple[str, ...]) -> str:
@@ -81,7 +86,10 @@ def torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(out + [_LEAF[leaf]])
 
 
-def _to_torch_layout(value: np.ndarray, leaf: str) -> np.ndarray:
+def _to_torch_layout(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+    leaf = path[-1]
+    if leaf == "kernel" and value.ndim == 4 and len(path) > 1 and path[-2] in _CONV_TRANSPOSE_NAMES:
+        return value[::-1, ::-1].transpose(2, 3, 0, 1)  # (kh, kw, in, out) flipped -> (in, out, kh, kw)
     if leaf == "g" and value.ndim == 1:
         return value.reshape(1, -1, 1, 1)  # RMSNorm
     if leaf == "kernel" and value.ndim == 4:
@@ -102,7 +110,7 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Iterator[Tuple[Tuple[str, ..
 def _from_paths(items) -> Dict[str, torch.Tensor]:
     sd = {}
     for path, value in items:
-        arr = np.ascontiguousarray(_to_torch_layout(np.asarray(value, np.float32), path[-1]))
+        arr = np.ascontiguousarray(_to_torch_layout(np.asarray(value, np.float32), tuple(path)))
         key = torch_key(tuple(path))
         if key in sd:
             raise ValueError(f"two parameters map to {key}")

@@ -140,4 +140,4 @@ def test_unported_networks_name_the_roadmap():
     from noisediff_tpu_torch.models import define_network
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_network("LSID", None)
+        define_network("UNet_PosEmbV2", None)

@@ -808,3 +808,89 @@ def test_tb_logger_writes_scalars_on_card(dev, tmp_path):
     assert [(r["tag"], r["step"]) for r in rows] == [
         (tag, step) for step in (0, 1) for tag in ("diffusion_loss", "lr")]
     assert all(np.isfinite(r["value"]) for r in rows)
+
+
+def _lsid_step(dtype, dev, sd, batch):
+    """One denoising step (flip and SNA off) of a width-32 LSID; returns
+    its loss and every parameter's gradient on the CPU."""
+    from noisediff_tpu_torch.models import LSID
+    from noisediff_tpu_torch.train.state import make_denoising_train_step, make_optimizer
+
+    model = LSID(dtype=dtype)
+    model.load_state_dict(sd)
+    model = model.to(dev, memory_format=torch.channels_last).train()
+    step = make_denoising_train_step(model, make_optimizer(model.parameters(), lr=1e-4),
+                                     augment_flip=False, use_sna=False)
+    metrics = step({k: v.to(dev) for k, v in batch.items()}, torch.Generator(device=dev))
+    return float(metrics["loss_sum"]), {n: p.grad.float().cpu()
+                                        for n, p in model.named_parameters()}
+
+
+def test_lsid_step_card_vs_cpu(dev):
+    """The denoiser's training step on the card against the CPU (B 2, 64^2,
+    L1): fp32 on both within 1e-5 on the loss and 1e-3 relative L2 on each
+    gradient (TF32 off); bf16 on the card with each gradient as close to
+    the CPU's fp32 one as the CPU's bf16 gradient is (within 2x + 0.02),
+    and the loss within 2e-2. No kernel of the port runs on this path."""
+    from noisediff_tpu_torch.models import LSID
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.manual_seed(0)
+    sd = LSID().state_dict()
+    rng = np.random.default_rng(2)
+    clean = rng.uniform(0, 0.4, (2, 64, 64, 4)).astype(np.float32)
+    batch = {"noisy_img": torch.from_numpy(np.clip(clean + rng.normal(0, .05, clean.shape), 0, 1)
+                                           .astype(np.float32)),
+             "clean_img": torch.from_numpy(clean), "iso": torch.tensor([800, 800]),
+             "ratio": torch.tensor([250.0, 250.0])}
+    cpu = torch.device("cpu")
+    loss32, g32 = _lsid_step(None, cpu, sd, batch)
+    loss16, g16 = _lsid_step(torch.bfloat16, cpu, sd, batch)
+    reset_launch_counts()
+    loss_c32, gc32 = _lsid_step(None, dev, sd, batch)
+    loss_c16, gc16 = _lsid_step(torch.bfloat16, dev, sd, batch)
+    assert not any(launch_counts().values())
+    assert abs(loss_c32 - loss32) <= 1e-5 * abs(loss32)
+    assert abs(loss_c16 - loss16) <= 2e-2 * abs(loss16)
+    for name in g32:
+        assert bool(torch.isfinite(gc16[name]).all()), name
+        assert _rel(gc32[name], g32[name]) < 1e-3, name
+        assert _rel(gc16[name], g32[name]) <= 2 * _rel(g16[name], g32[name]) + 0.02, name
+
+
+def test_sna_poisson_on_card_has_poisson_moments(dev):
+    """torch.poisson on the card at a fixed lam field (SNA's draw): the
+    mean and variance of each channel's draws agree with lam within 5
+    standard errors."""
+    lam = torch.tensor([0.5, 3.0, 40.0, 900.0], device=dev).expand(512, 512, 4).contiguous()
+    draws = torch.poisson(lam, generator=torch.Generator(device=dev).manual_seed(0))
+    draws = draws.reshape(-1, 4).double().cpu()
+    n, lam = draws.shape[0], lam[0, 0].double().cpu()
+    assert bool((draws == draws.round()).all())
+    assert bool(((draws.mean(0) - lam).abs() < 5 * (lam / n).sqrt()).all())
+    assert bool(((draws.var(0) - lam).abs() < 5 * lam * ((2 + 1 / lam) / n).sqrt()).all())
+
+
+def test_lsid_step_under_pallas_wgrad(dev, monkeypatch):
+    """NOISEDIFF_WGRAD=pallas routes LSID's wide convs' weight gradients
+    through conv_wgrad, as the JAX model's convs are routed: the bf16 step's
+    gradients within 2e-2 relative L2 of cuDNN's wgrad step (which rounds
+    each weight gradient to bf16 where the kernel keeps fp32)."""
+    from noisediff_tpu_torch.models import LSID
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.manual_seed(1)
+    sd = LSID().state_dict()
+    rng = np.random.default_rng(3)
+    clean = rng.uniform(0, 0.4, (2, 64, 64, 4)).astype(np.float32)
+    batch = {"noisy_img": torch.from_numpy(np.clip(clean + rng.normal(0, .05, clean.shape), 0, 1)
+                                           .astype(np.float32)),
+             "clean_img": torch.from_numpy(clean), "iso": torch.tensor([800, 800]),
+             "ratio": torch.tensor([250.0, 250.0])}
+    _, want = _lsid_step(torch.bfloat16, dev, sd, batch)
+    monkeypatch.setenv("NOISEDIFF_WGRAD", "pallas")
+    reset_launch_counts()
+    _, got = _lsid_step(torch.bfloat16, dev, sd, batch)
+    assert launch_counts()["conv_wgrad"] > 0
+    for name in want:
+        assert _rel(got[name], want[name]) < 2e-2, name
