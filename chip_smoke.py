@@ -21,7 +21,9 @@ Every phase runs, in this order (any failure exits non-zero):
            call and the dim-96 model's widths; the attn_tail forward and backward also at
            ragged pixel counts (RAGGED_SHAPES); both bit-equal across two
            calls; gn_stats and gn_grad_stats one kernel a call, read from a
-           torch.profiler profile of each shape
+           torch.profiler profile of each shape; attn_tail, groupnorm_silu
+           and dual_head at the full SID frame's stages (B 1, 1424 x 2128 x
+           48 to 178 x 266 x 384), with their time per full-frame evaluation
   model    the full-width (dim 48) NoiseDiffNet forward on the card, bf16
            through the kernels, against the same weights on the CPU
   profile  one model evaluation at the canonical shape: CUDA-event time and
@@ -83,6 +85,21 @@ Every phase runs, in this order (any failure exits non-zero):
            draw on the card by its moments and apply_sna's lattice; then a
            step's period with the batch on the card and its device busy
            time by kernel class (torch.profiler) with the idle share
+  evaluate the denoiser's evaluation through the test_denoising CLI on the
+           denoise phase's net_final: 4 SID test pairs at Sony's 2848 x 4256
+           Bayer size made from the seed (ISO800 x250), dark shading (float64
+           resources) and illuminance correction; no kernel launches, each
+           frame's time by part (decode on the host; upload, forward and
+           metrics on the card), frames/s, peak memory; the first frame's
+           PSNR, SSIM and output against the same CLI on the CPU (EVAL_*)
+  kld      the eval_kld CLI: the main phase's generated patches against the
+           evaluation tree's real pairs; finite, non-negative KLDs
+  fullframe  diffusion/fullframe.generate_full_frame over the whole packed
+           frame (B 1, 1424 x 2128 x 4) from gen_setup's dim-48 weights, bf16
+           through the kernels, DPM-10: shape, finite values, 9 / 42 / 1
+           launches of attn_tail / groupnorm_silu / dual_head an evaluation;
+           DPM-2 through the kernels against the fp32 plain route on the card
+           beside the bf16 plain route
   denoise_check  one LSID step from make_denoising_train_step (flip and
            SNA off, B 2, 256^2) on the card against the CPU: fp32 on both
            within DENOISE_FP32_LOSS / DENOISE_FP32_GRAD, bf16 on the card
@@ -98,6 +115,7 @@ and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -375,6 +393,8 @@ def phase_kernels(seed: int):
     results["attn_tail"] += fwd
     results["attn_tail_bwd"] += bwd
     torch.cuda.empty_cache()
+    for name, rows in kernels_fullframe(randn).items():
+        results[name] += rows
     results.update(kernels_ddim(randn))
     results.update(kernels_wgrad(randn, seed))
     results.update(kernels_attention(randn))
@@ -863,6 +883,137 @@ def kernels_ragged(randn):
             "bit-equal across two calls")
         del x, g, args, fa
     return fwd, bwd
+
+
+# the full SID frame (B 1, 1424 x 2128 packed) at each stage of the dim-48
+# UNet: (H, W, C), the stages of full-frame generation
+FULLFRAME = (1424, 2128)
+FULLFRAME_STAGES = [(FULLFRAME[0] >> i, FULLFRAME[1] >> i, DIM << i) for i in range(4)]
+
+
+def attn_tail_scale(x, want, got):
+    """The scale of the attn_tail forward's bound at the full frame: |out -
+    x| + |x|. out = round(round(proj) + x) stores the proj output in bf16
+    before the residual add, so a rounding flip of proj (an fp32 sum in
+    another order) is relative to |proj| ~ |out - x|, which exceeds |out|
+    where the add cancels; over the full frame's 18 M to 145 M elements a
+    stage, such a flip can land there. Returns the scale and, for the log,
+    how many elements are past the |out|-scaled bound of the canonical
+    shapes, with the worst one's out, x, proj and error."""
+    rtol, atol = TOLS["attn_tail"]
+    g, w, xf = got.float(), want.float(), x.float()
+    err = (g - w).abs()
+    past = err > atol + rtol * w.abs()
+    worst = {}
+    if bool(past.any()):
+        i = int((err * past).flatten().argmax())
+        worst = {"out": float(w.flatten()[i]), "x": float(xf.flatten()[i]),
+                 "proj": float((w - xf).flatten()[i]), "err": float(err.flatten()[i])}
+    return (w - xf).abs() + xf.abs(), {"n": int(past.sum()), "worst": worst}
+
+
+def kernels_fullframe(randn):
+    """attn_tail, groupnorm_silu (each (groups, FiLM) the evaluation uses)
+    and dual_head at the full frame's stage shapes (B 1; up to 145 M
+    elements a sample at 1424 x 2128 x 48): against the plain versions,
+    two calls bit-equal, one groupnorm_silu launch a call, per call and on
+    the card's clock beside the bound. Rows have calls 0 (no per-evaluation
+    sum at the canonical shape) and `fullframe_calls`, the calls of one
+    full-frame evaluation."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import (
+        fused_attn_tail, fused_dual_head, fused_groupnorm_film_silu, reference_attn_tail,
+        reference_dual_head, reference_groupnorm_film_silu)
+
+    rows = {"attn_tail": [], "groupnorm_silu": [], "dual_head": []}
+    for st, (h, w, c) in enumerate(FULLFRAME_STAGES):
+        x = randn(1, h, w, c, scale=1.5, dtype=torch.bfloat16) + 0.3
+        args = attn_tail_args(randn, x)
+        got = fused_attn_tail(*args)
+        want = reference_attn_tail(*args)
+        scale, cancel = attn_tail_scale(x, want, got)
+        err = compare("attn_tail", got, want, scale=scale)
+        if not torch.equal(got, fused_attn_tail(*args)):
+            raise AssertionError(f"attn_tail full frame {h}x{w}x{c}: two calls differ")
+        del got, want, scale
+        ms = time_ms(lambda: fused_attn_tail(*args), reps=5)
+        dev_ms = time_device_ms(lambda: fused_attn_tail(*args), n=5)
+        plain = time_ms(lambda: reference_attn_tail(*args), reps=2, warmup=1)
+        b_ms, b_by = attn_tail_bound(x)
+        rows["attn_tail"].append(dict(shape=[1, h, w, c], calls=0,
+                                      fullframe_calls=ATTN_PER_EVAL[st], ms=ms,
+                                      device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                                      bound_by=b_by, max_abs_err=err,
+                                      past_output_scale=cancel))
+        log(f"  full frame attn_tail 1x{h}x{w}x{c}: {ms:.4f} ms, dev {dev_ms:.4f} "
+            f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; plain {plain:.4f}), max abs "
+            f"err {err:.3g}, bit-equal across two calls; {cancel['n']} element(s) past atol + "
+            f"rtol |out|, where the residual add cancels: {cancel['worst']}")
+        del args
+        xg = x.reshape(1, h * w, c)
+        for gst, groups, film, count in GN_PER_EVAL:
+            if gst != st:
+                continue
+            gamma, beta, bias = 1.0 + 0.1 * randn(c), 0.1 * randn(c), 0.3 * randn(c)
+            fs = fsh = None
+            if film:
+                t = (0.2 * randn(1, 2 * c)).to(torch.bfloat16)
+                fs, fsh = t[:, :c], t[:, c:]
+            gargs = (xg, gamma, beta, fs, fsh, groups, 1e-5, bias)
+            n0 = fused_groupnorm_film_silu.launches
+            got = fused_groupnorm_film_silu(*gargs)
+            if fused_groupnorm_film_silu.launches != n0 + 1:
+                raise AssertionError(f"groupnorm_silu full frame {h}x{w}x{c}: more than one "
+                                     "launch in a call")
+            err = compare("groupnorm_silu", got, reference_groupnorm_film_silu(*gargs))
+            if not torch.equal(got, fused_groupnorm_film_silu(*gargs)):
+                raise AssertionError(f"groupnorm_silu full frame {h}x{w}x{c}: two calls differ")
+            del got
+            ms = time_ms(lambda: fused_groupnorm_film_silu(*gargs), reps=5)
+            dev_ms = time_device_ms(lambda: fused_groupnorm_film_silu(*gargs), n=5)
+            plain = time_ms(lambda: reference_groupnorm_film_silu(*gargs), reps=2, warmup=1)
+            moved = 2 * nbytes(xg) + 3 * c * 4 + (2 * c * 2 if film else 0)
+            b_ms, b_by = bound(moved, 8 * xg.numel(), PEAK_FP32_FLOPS)
+            rows["groupnorm_silu"].append(dict(
+                shape=[1, h * w, c], groups=groups, film=film, bias=True, calls=0,
+                fullframe_calls=count, ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err))
+            log(f"  full frame groupnorm_silu 1x{h * w}x{c} G{groups} film={film}: {ms:.4f} ms, "
+                f"dev {dev_ms:.4f} ({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; plain "
+                f"{plain:.4f}), max abs err {err:.3g}, one launch, bit-equal across two calls")
+            del gargs
+        if st == 0:
+            sa, sb = (randn(1, h, w, c, dtype=torch.bfloat16) for _ in range(2))
+            p = (randn(c, c, scale=c ** -0.5), 0.1 * randn(c), randn(4, c, scale=c ** -0.5),
+                 0.1 * randn(4), randn(4, c, scale=c ** -0.5), 0.1 * randn(4))
+            hargs = (x, sa, sb) + p
+            got = fused_dual_head(*hargs)
+            err = compare("dual_head", got, reference_dual_head(*hargs))
+            if not torch.equal(got, fused_dual_head(*hargs)):
+                raise AssertionError("dual_head full frame: two calls differ")
+            del got
+            ms = time_ms(lambda: fused_dual_head(*hargs), reps=5)
+            dev_ms = time_device_ms(lambda: fused_dual_head(*hargs), n=5)
+            plain = time_ms(lambda: reference_dual_head(*hargs), reps=2, warmup=1)
+            pix = h * w
+            moved = 3 * nbytes(x) + pix * 4 * 4 + (c * c + 8 * c + c + 8) * 4
+            b_ms, b_by = bound(moved, 2 * pix * (c * c + 8 * c), PEAK_BF16_FLOPS)
+            rows["dual_head"].append(dict(shape=[1, h, w, c], calls=0, fullframe_calls=1, ms=ms,
+                                          device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                                          bound_by=b_by, max_abs_err=err))
+            log(f"  full frame dual_head 1x{h}x{w}x{c}: {ms:.4f} ms, dev {dev_ms:.4f} "
+                f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; plain {plain:.4f}), max abs "
+                f"err {err:.3g}, bit-equal across two calls")
+            del sa, sb, hargs
+        del x, xg
+        torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        dev = sum(r["device_ms"] * r["fullframe_calls"] for r in rs)
+        bnd = sum(r["bound_ms"] * r["fullframe_calls"] for r in rs)
+        log(f"  {name}: {dev:.4f} ms of the card's clock per full-frame evaluation against a "
+            f"bound of {bnd:.4f} ({dev / bnd:.2f}x)")
+    return rows
 
 
 def kernels_training(randn):
@@ -1814,10 +1965,12 @@ DENOISE_FP32_GRAD = 1e-3
 POISSON_SE = 5.0
 
 
-def make_denoise_resources(root: str, seed: int) -> str:
-    """PMN dark-shading resources at the smoke tree's Bayer frame size
-    (2 FRAME square), in PMN's format: darkshading_{high,low}ISO_{k,b}.npy
-    and darkshading_BLE.pkl keyed by ISO; returns their directory."""
+def make_denoise_resources(root: str, seed: int, size=(2 * FRAME, 2 * FRAME),
+                           dtype: str = "float32") -> str:
+    """PMN dark-shading resources at a Bayer frame size (the smoke tree's
+    2 FRAME square by default), in PMN's format: darkshading_{high,low}
+    ISO_{k,b}.npy of `dtype` and darkshading_BLE.pkl keyed by ISO; returns
+    their directory."""
     import pickle
 
     import numpy as np
@@ -1827,9 +1980,9 @@ def make_denoise_resources(root: str, seed: int) -> str:
     os.makedirs(res)
     for band in ("low", "high"):
         np.save(os.path.join(res, f"darkshading_{band}ISO_k.npy"),
-                rng.normal(0, 1e-3, (2 * FRAME, 2 * FRAME)).astype(np.float32))
+                rng.normal(0, 1e-3, size).astype(dtype))
         np.save(os.path.join(res, f"darkshading_{band}ISO_b.npy"),
-                rng.normal(0, 2.0, (2 * FRAME, 2 * FRAME)).astype(np.float32))
+                rng.normal(0, 2.0, size).astype(dtype))
     with open(os.path.join(res, "darkshading_BLE.pkl"), "wb") as f:
         pickle.dump({800: 0.3}, f)
     return res
@@ -2116,6 +2269,275 @@ def phase_denoise_profile(seed: int, cli_period_ms: float):
     return dict(period_ms=period, host_ms=host, busy_ms=busy, categories=cats, kernels=kernels)
 
 
+# the evaluation: 4 SID test pairs at the Sony Bayer size, ISO800 x250
+EVAL_PAIRS, EVAL_RATIO = 4, 250
+# the first frame on the card against the CPU (fp32 on both, TF32 off):
+# PSNR within EVAL_PSNR dB, SSIM within EVAL_SSIM, the output frame within
+# EVAL_OUT relative L2 (sums of 12.1 M values and 23 convolutions in
+# another order; fp32 rounding moves them ~1e-6)
+EVAL_PSNR, EVAL_SSIM, EVAL_OUT = 1e-3, 1e-5, 1e-4
+EVAL_KLD_KEYS = {"iso", "ratio", "kld_forward", "kld_inverse", "kld_symmetric", "n_real",
+                 "n_synth"}
+# full-frame generation: DPM-10 on the lambda grid, and DPM-2 for the
+# bf16-against-fp32 check
+FULLFRAME_STEPS, FULLFRAME_CHECK_STEPS = 10, 2
+
+
+def make_eval_tree(root: str, seed: int) -> str:
+    """A SID test tree at Sony's Bayer size: EVAL_PAIRS ISO800 x250 pairs
+    (a smooth textured clean frame; the short exposure it over the ratio
+    with Poisson shot noise and read noise) as .npy sidecars, in
+    Sony_test_list.txt and Sony_train_list.txt; returns the SID folder."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 3)
+    sid = os.path.join(root, "SID")
+    for sub in ("short", "long"):
+        os.makedirs(os.path.join(sid, "Sony", sub))
+    h, w = SID_BAYER
+    yy, xx = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
+                         np.linspace(0, 1, w, dtype=np.float32), indexing="ij")
+    lines = []
+    for i in range(1, EVAL_PAIRS + 1):
+        in_fn, gt_fn = f"{i:05d}_00_0.04s.ARW", f"{i:05d}_00_10s.ARW"
+        clean = (0.05 + 0.5 * (0.5 + 0.5 * np.sin(4 * i * xx + 3 * yy))
+                 * rng.uniform(0.6, 1.0, (h, w)).astype(np.float32))
+        long_dn = 512 + clean * 15871
+        short = (512 + rng.poisson(clean * (15871 / EVAL_RATIO))
+                 + rng.normal(0, 3.0, (h, w)).astype(np.float32))
+        np.save(os.path.join(sid, "Sony", "short", in_fn + ".npy"),
+                np.clip(short, 0, 16383).astype(np.uint16))
+        np.save(os.path.join(sid, "Sony", "long", gt_fn + ".npy"),
+                np.clip(long_dn, 0, 16383).astype(np.uint16))
+        lines.append(f"./Sony/short/{in_fn} ./Sony/long/{gt_fn} ISO800 F1.8\n")
+    for name in ("Sony_test_list.txt", "Sony_train_list.txt"):
+        with open(os.path.join(sid, name), "w") as f:
+            f.write("".join(lines))
+    with open(os.path.join(sid, "Sony_test_first.txt"), "w") as f:
+        f.write(lines[0])
+    return sid
+
+
+def phase_evaluate(seed: int, workdir: str, net_final: str):
+    """The denoiser's evaluation through the port's test_denoising CLI on
+    the card: the denoise phase's net_final over EVAL_PAIRS full SID frames
+    (2848 x 4256 Bayer, 1424 x 2128 x 4 packed) with the dark shading and
+    the illuminance correction; no kernel of the port launches; the first
+    frame against the same CLI on the CPU (EVAL_* bounds)."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.cli import test_denoising
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    root = os.path.join(workdir, "eval")
+    t0 = time.perf_counter()
+    sid = make_eval_tree(root, seed)
+    # float64 maps: the evaluation takes the dark shading as float32, as
+    # the JAX package does
+    res = make_denoise_resources(root, seed, SID_BAYER, "float64")
+    log(f"  made {EVAL_PAIRS} SID test pairs of {SID_BAYER[0]}x{SID_BAYER[1]} and their dark "
+        f"shading in {time.perf_counter() - t0:.1f} s")
+    try:
+        import PIL  # noqa: F401
+
+        visual = ["--visualize_img"]
+    except ImportError:
+        visual = []
+    argv = ["--resume", net_final, "--ratio", str(EVAL_RATIO), "--correct_darkshading",
+            "--correct_illum", "--sid_folder", sid, "--resources_path", res,
+            "--save_folder", os.path.join(root, "out")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = test_denoising.main(argv + visual + ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if out["n"] != EVAL_PAIRS or not np.isfinite([out["PSNR"], out["SSIM"]]).all():
+        raise AssertionError(f"evaluate: {out['n']} frames, PSNR {out['PSNR']}, SSIM "
+                             f"{out['SSIM']}")
+    if any(counts.values()):
+        raise AssertionError(f"evaluate: a kernel of the port ran on the LSID path: {counts}")
+    if visual and len(glob.glob(os.path.join(root, "out", "*_output.png"))) != EVAL_PAIRS:
+        raise AssertionError("evaluate: --visualize_img did not write a PNG a frame")
+    frames = out["frames"]
+    parts = {k: [f[k] for f in frames] for k in ("decode_s", "upload_s", "forward_s",
+                                                 "metrics_s", "visual_s", "frame_s")}
+    later = sum(parts["frame_s"][1:])
+    steady = (EVAL_PAIRS - 1) / later
+    unwritten = (EVAL_PAIRS - 1) / (later - sum(parts["visual_s"][1:]))
+    log(f"  {out['n']} frames through the CLI ({'with' if visual else 'without'} "
+        f"--visualize_img: PIL {'imports' if visual else 'is absent'}): mean PSNR "
+        f"{out['PSNR']:.4f}, SSIM {out['SSIM']:.5f}; {out['n'] / out['seconds']:.4f} frames/s "
+        f"over the loop ({out['seconds']:.3f} s), {out['n'] / wall:.4f} over the CLI call "
+        f"({wall:.3f} s, the model's build and load included); after the first frame "
+        f"{steady:.4f} frames/s, {unwritten:.4f} without the PNGs' writes; no kernel launched")
+    for k, v in parts.items():
+        log(f"    {k}: first frame {v[0] * 1e3:.4f} ms, later frames "
+            f"{[round(x * 1e3, 4) for x in v[1:]]} ms ("
+            f"{'card' if k in ('upload_s', 'forward_s', 'metrics_s') else 'host'} clock)")
+    log(f"  peak device memory {peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated)")
+
+    first = argv + ["--test_list", os.path.join(sid, "Sony_test_first.txt")]
+    card = test_denoising.evaluate(test_denoising.build_parser().parse_args(
+        first + ["--device", "cuda"]), keep=1)
+    t0 = time.perf_counter()
+    cpu = test_denoising.evaluate(test_denoising.build_parser().parse_args(
+        first + ["--device", "cpu"]), keep=1)
+    cpu_s = time.perf_counter() - t0
+    a, b = card["outputs"][0], cpu["outputs"][0]
+    rel = float(np.linalg.norm(a.astype(np.float64) - b) / np.linalg.norm(b.astype(np.float64)))
+    d_psnr = abs(frames[0]["PSNR"] - cpu["frames"][0]["PSNR"])
+    d_ssim = abs(frames[0]["SSIM"] - cpu["frames"][0]["SSIM"])
+    c0 = cpu["frames"][0]
+    log(f"  first frame, card vs CPU (fp32, TF32 off): PSNR {frames[0]['PSNR']:.6f} / "
+        f"{c0['PSNR']:.6f} (|d| {d_psnr:.3g} dB), SSIM {frames[0]['SSIM']:.7f} / "
+        f"{c0['SSIM']:.7f} (|d| {d_ssim:.3g}), output frame rel L2 {rel:.3g}; bounds "
+        f"{EVAL_PSNR} dB, {EVAL_SSIM}, {EVAL_OUT}")
+    log(f"  the CPU: {cpu_s:.3f} s for the frame ({c0['decode_s']:.4f} s decode, "
+        f"{c0['forward_s']:.4f} s packing and forward, {c0['metrics_s']:.4f} s metrics)")
+    if a.shape != (FULLFRAME[0], FULLFRAME[1], 4) or d_psnr > EVAL_PSNR or \
+            d_ssim > EVAL_SSIM or rel > EVAL_OUT:
+        raise AssertionError(f"evaluate: the card's first frame disagrees with the CPU's: "
+                             f"{a.shape}, PSNR {d_psnr}, SSIM {d_ssim}, rel L2 {rel}")
+    return dict(n=out["n"], psnr=out["PSNR"], ssim=out["SSIM"],
+                frames_per_s=out["n"] / out["seconds"], cli_frames_per_s=out["n"] / wall,
+                steady_frames_per_s=steady, steady_frames_per_s_without_png=unwritten,
+                parts=parts, peak_bytes=peak, cpu_seconds=cpu_s, cpu_frame=c0,
+                d_psnr=d_psnr, d_ssim=d_ssim, out_rel_l2=rel, sid=sid)
+
+
+def phase_kld(sid: str, gen_dir: str):
+    """The port's eval_kld CLI: the main phase's generated patches against
+    the evaluation tree's real ISO800 x250 pairs; three finite,
+    non-negative KLDs under the JAX CLI's keys."""
+    import numpy as np
+
+    from noisediff_tpu_torch.cli import eval_kld
+
+    t0 = time.perf_counter()
+    out = eval_kld.main(["--iso", "800", "--ratio", str(EVAL_RATIO), "--generated", gen_dir,
+                         "--sid_folder", sid])
+    secs = time.perf_counter() - t0
+    klds = [out[k] for k in ("kld_forward", "kld_inverse", "kld_symmetric")]
+    want_synth = N_BATCHES * BATCH * 4 * CROP * CROP
+    if set(out) != EVAL_KLD_KEYS or not np.isfinite(klds).all() or min(klds) < 0 or \
+            out["n_synth"] != want_synth:
+        raise AssertionError(f"kld: {out}")
+    log(f"  KLD forward {klds[0]:.5f}, inverse {klds[1]:.5f}, symmetric {klds[2]:.5f} "
+        f"({out['n_real']} real and {out['n_synth']} generated values; {secs:.2f} s on the host)")
+    return out
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Every block built inside runs its plain version: the kernels' width
+    rule answers no (`models.blocks._WIDTH_OK`)."""
+    from noisediff_tpu_torch.models import blocks
+
+    saved = dict(blocks._WIDTH_OK)
+    blocks._WIDTH_OK.update({k: (lambda c: False) for k in saved})
+    try:
+        yield
+    finally:
+        blocks._WIDTH_OK.update(saved)
+
+
+def phase_fullframe(seed: int, ckpt: str, sid: str):
+    """Full-frame generation (diffusion/fullframe.generate_full_frame) on
+    the card: the gen_setup weights (dim 48, bf16 through the kernels),
+    DPM-10 on the lambda grid over the whole packed frame of the evaluation
+    tree's first clean frame (B 1, 1424 x 2128 x 4); shape, finite values,
+    each kernel's launches per evaluation x 10; then DPM-2 from one initial
+    noise through the kernels, on the plain route in bf16 and on the plain
+    route in fp32."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.data.datasets import iso_ratio_index
+    from noisediff_tpu_torch.data.raw_host import load_packed_frame
+    from noisediff_tpu_torch.diffusion.fullframe import generate_full_frame
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+    from noisediff_tpu_torch.weights import load_into
+
+    dev = torch.device("cuda")
+    clean = load_packed_frame(os.path.join(sid, "Sony", "long", "00001_00_10s.ARW"))
+    idx = iso_ratio_index(800, EVAL_RATIO)
+    schedule = make_schedule("sigmoid2", 1000)
+
+    def diffusion(dtype):
+        model = NoiseDiffNet(dim=DIM, dtype=dtype)
+        load_into(model, ckpt)
+        model = model.to(dev, memory_format=torch.channels_last).eval()
+        return GaussianDiffusion(model, schedule, image_size=FULLFRAME[0], device=dev)
+
+    gd = diffusion(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((1, *FULLFRAME, 4), generator=g, device=dev)
+    generate_full_frame(gd, clean, idx, sampling_timesteps=1, init_noise=x)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate_full_frame(gd, clean, idx, sampler="dpm", sampling_timesteps=FULLFRAME_STEPS,
+                              dpm_spacing="lambda", init_noise=x)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if out.shape != (*FULLFRAME, 4) or not np.isfinite(out).all():
+        raise AssertionError(f"fullframe: output {out.shape} or not finite")
+    want = {"fused_attn_tail": 9, "fused_groupnorm_film_silu": 42, "fused_dual_head": 1}
+    for name, per_eval in want.items():
+        if counts[name] != per_eval * FULLFRAME_STEPS:
+            raise AssertionError(f"fullframe: {name}: {counts[name]} launches, expected "
+                                 f"{per_eval} per evaluation x {FULLFRAME_STEPS}")
+    if any(v for k, v in counts.items() if k not in want):
+        raise AssertionError(f"fullframe: launches {counts}")
+    log(f"  DPM-{FULLFRAME_STEPS} over 1x{FULLFRAME[0]}x{FULLFRAME[1]}x4: {secs:.4f} s a sample "
+        f"(synchronised), {secs * 1e3 / FULLFRAME_STEPS:.4f} ms an evaluation; std of the "
+        f"noise {float(out.std()):.5f}; peak device memory {peak / 2 ** 30:.3f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+
+    # DPM-2 through the kernels (bf16) against the plain route in fp32, with
+    # the plain route in bf16 beside them: the kernels' sample must be as
+    # close to the fp32 one as the plain bf16 sample is, within 2x + 0.02
+    # (train_check's rule for bf16 against fp32: bf16 rounding through ~60
+    # layers at each of the two evaluations, the kernels storing the same
+    # intermediates in bf16 as the plain versions)
+    kern = generate_full_frame(gd, clean, idx, sampling_timesteps=FULLFRAME_CHECK_STEPS,
+                               init_noise=x)
+    del gd
+    reset_launch_counts()
+    plain32 = generate_full_frame(diffusion(None), clean, idx,
+                                  sampling_timesteps=FULLFRAME_CHECK_STEPS, init_noise=x)
+    with plain_route():
+        gd16 = diffusion(torch.bfloat16)
+    plain16 = generate_full_frame(gd16, clean, idx, sampling_timesteps=FULLFRAME_CHECK_STEPS,
+                                  init_noise=x)
+    if any(launch_counts().values()):
+        raise AssertionError(f"fullframe: the plain routes launched kernels: {launch_counts()}")
+
+    def rel(a, b):
+        return float(np.linalg.norm((a - b).astype(np.float64)) / np.linalg.norm(b))
+
+    r_kern, r_plain, r_kp = rel(kern, plain32), rel(plain16, plain32), rel(kern, plain16)
+    limit = 2 * r_plain + 0.02
+    log(f"  DPM-{FULLFRAME_CHECK_STEPS} full frame, rel L2 against the fp32 plain route: "
+        f"kernels (bf16) {r_kern:.4g}, plain bf16 {r_plain:.4g} (bound {limit:.4g}); kernels "
+        f"against plain bf16 {r_kp:.4g}")
+    if not np.isfinite(kern).all() or r_kern > limit:
+        raise AssertionError(f"fullframe: the kernels' DPM-2 sample is {r_kern} from fp32, over "
+                             f"{limit}")
+    return dict(seconds=secs, eval_ms=secs * 1e3 / FULLFRAME_STEPS, peak_bytes=peak,
+                counts=counts, rel_kernels_fp32=r_kern, rel_plain16_fp32=r_plain,
+                rel_kernels_plain16=r_kp)
+
+
 KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
                    "fused_dual_head", "fused_ddim_head_update", "gn_stats", "gn_grad_stats",
                    "conv_wgrad", "flash_attention")
@@ -2167,6 +2589,11 @@ def kernels_line(results, launches):
         device = {k: sum(r[k] * r["calls"] for r in counted)
                   for k in ("device_ms", "library_device_ms", "host_ms")
                   if counted and all(k in r for r in counted)}
+        # one full-frame evaluation (B 1, 1424 x 2128), where the kernel has such rows
+        ff = [r for r in rows if r.get("fullframe_calls")]
+        if ff:
+            device.update({f"fullframe_{k}": sum(r[k] * r["fullframe_calls"] for r in ff)
+                           for k in ("device_ms", "plain_ms", "bound_ms")})
         # the bound of the shapes that carry most of the bound time
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "bytes")
         n, split = launches[name]
@@ -2253,6 +2680,14 @@ def main(argv=None) -> int:
         check_poisson_on_card()
         log("[denoise profile] where a denoising step spends its time")
         phase_denoise_profile(args.seed, denoise["period_ms"])
+        log("[evaluate] the denoiser's PSNR / SSIM through the test_denoising CLI, full frames")
+        evaluation = phase_evaluate(args.seed, workdir, os.path.join(
+            workdir, "denoise", "weights", "train_denoising", "snapshot", "net_final.pth"))
+        log("[kld] real against generated noise through the eval_kld CLI")
+        phase_kld(evaluation["sid"], os.path.join(
+            workdir, "out", "ISO800_Ratio250", "npy", "generated"))
+        log("[fullframe] full-frame generation, DPM-10 over the whole packed SID frame")
+        fullframe = phase_fullframe(args.seed, ckpt, evaluation["sid"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("[denoise_check] one LSID training step, card vs CPU")
@@ -2278,14 +2713,16 @@ def main(argv=None) -> int:
     log(f"[done] {time.time() - t_start:.1f} s")
 
     gc, dc, tc, steps = gen["counts"], ddim["counts"], train["counts"], train["steps"]
+    fc = fullframe["counts"]
     launches = {}
     for name in ("attn_tail", "groupnorm_silu", "dual_head", "attn_tail_bwd", "gn_stats",
                  "gn_grad_stats"):
         w = KERNEL_META[name][0]
-        launches[name] = (gc[w] + dc[w] + tc[w], {
+        launches[name] = (gc[w] + dc[w] + tc[w] + fc[w], {
             "launches_generation": gc[w], "launches_per_batch": gc[w] / N_BATCHES,
             "launches_ddim": dc[w], "launches_ddim_per_batch": dc[w] / N_BATCHES,
-            "launches_training": tc[w], "launches_per_step": tc[w] / steps})
+            "launches_training": tc[w], "launches_per_step": tc[w] / steps,
+            "launches_fullframe": fc[w]})
     n = ddim["counts"]["fused_ddim_head_update"]
     launches["ddim_head"] = (n, {"launches_per_batch": n / N_BATCHES})
     n = wgrad["counts"]["conv_wgrad"]

@@ -19,8 +19,10 @@ parameters (--no_mixed_precision for fp32). Snapshots go to
 --resume takes a .pth/.pt or a JAX .npz snapshot, or 'auto' (the newest
 snapshot of this run); --resume_optim an optimizer_G .pth or a JAX .npz.
 Flags the JAX trainer ignores (--loss_perceptual, --loss_adv, ...) are
-accepted and ignored; --phase other than train and a --launcher other
-than none raise.
+accepted and ignored; a --launcher other than none raises. --phase test
+runs the network over --testset (one of the trainsets, in order, no
+augmentation) under no_grad and returns the batches run: the JAX trainer's
+vestigial test; the evaluation proper is the test_denoising CLI.
 """
 from __future__ import annotations
 
@@ -109,14 +111,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Train; returns the trainer's summary of the run."""
+    """Train (--phase train) and return the trainer's summary of the run,
+    or run the test loader's forward (any other phase) and return the
+    batches run."""
     args = build_parser().parse_args(argv)
     set_random_seed(args.random_seed)
     setup_run_dirs(args)
 
     from ..train.trainer_denoising import Trainer
 
-    return Trainer(args).train()
+    trainer = Trainer(args)
+    return trainer.train() if args.phase == "train" else trainer.test()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""SID manifest parsing and the generation patch grid.
+"""SID / ELD manifest parsing and the generation patch grid.
 
-Port of the generation subset of noisediff_tpu/data/manifest.py:
+Port of noisediff_tpu/data/manifest.py:
   * Sony_train_list.txt lines 'in gt ISOxxx Fx.x', exposure from filename
     chars [9:-5], ratio = min(gt_expo / in_expo, 300) (reference
     dataloader/dataset.py:48-64);
@@ -9,13 +9,17 @@ Port of the generation subset of noisediff_tpu/data/manifest.py:
     'clean+noisy+x_y.npy' names the denoising stage reads;
   * that cross-stage filename contract itself (`npy_patch_name`, written by
     the generation trainer, parsed by the denoising dataset) and the
-    'ISO800_Ratio250' folder names of the generated data.
+    'ISO800_Ratio250' folder names of the generated data;
+  * the unique (ISO, ratio) pairs of a list (util.py:150-181);
+  * the ELD evaluation lists, joined with ISO and ratio from the SID lists
+    by input filename (test_denoising.py:143-172), and the ELD test set's
+    scene layout (test_denoising.py:444-459, 490-498).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Tuple
+from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -66,6 +70,12 @@ def parse_sid_list(path: str) -> List[SidEntry]:
     return entries
 
 
+def get_iso_ratio_info(entries: Iterable[SidEntry]) -> np.ndarray:
+    """Unique (iso, ratio) pairs, sorted, float64 (reference util.py:150-181)."""
+    pairs = sorted({(e.iso, e.ratio) for e in entries})
+    return np.asarray(pairs, dtype=np.float64)
+
+
 def patch_grid(
     h: int = SID_PACKED_H, w: int = SID_PACKED_W, ps: int = 512
 ) -> List[Tuple[int, int]]:
@@ -105,3 +115,50 @@ def parse_synthetic_folder_name(subfolder: str) -> Tuple[int, int]:
     """'ISO800_Ratio250' -> (800, 250) (dataset_denoising.py:47-52)."""
     iso_s, ratio_s = subfolder.split("_")
     return int(iso_s.replace("ISO", "")), int(ratio_s.replace("Ratio", ""))
+
+
+def parse_eld_list(path: str) -> List[Tuple[str, str]]:
+    """ELD list lines 'in_path gt_path' -> (in filename, gt filename)
+    (test_denoising.py:143-157)."""
+    out = []
+    with open(path, "r") as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                in_path, gt_path = line.split(" ")
+                out.append((os.path.basename(in_path), os.path.basename(gt_path)))
+    return out
+
+
+def eld_list_with_iso(sid_list_path: str,
+                      eld_list_path: str) -> List[Tuple[str, str, int, float]]:
+    """The ELD list's pairs with ISO and ratio looked up in the SID list by
+    input filename (test_denoising.py:159-172)."""
+    by_in_fn = {e.in_fn: e for e in parse_sid_list(sid_list_path)}
+    out = []
+    for in_fn, gt_fn in parse_eld_list(eld_list_path):
+        e = by_in_fn[in_fn]
+        out.append((in_fn, gt_fn, e.iso, e.ratio))
+    return out
+
+
+def eld_scene_paths(eld_folder: str, ratio: int, cameras: Sequence[str] = ("SonyA7S2",),
+                    suffix: str = ".ARW",
+                    scenes: Sequence[int] = tuple(range(1, 11))) -> List[Tuple[str, str]]:
+    """(input, ground truth) paths of the ELD test set: scenes 1-10 of each
+    camera, the image ids by ratio (test_denoising.py:444-459, 490-498);
+    ratios other than 100 and 200 raise NotImplementedError."""
+    if ratio == 100:
+        img_ids, gt_ids = [4, 9, 14], [6, 11, 16]
+    elif ratio == 200:
+        img_ids, gt_ids = [5, 10, 15], [6, 11, 16]
+    else:
+        raise NotImplementedError(f"ELD ratio {ratio} not supported")
+    pairs = []
+    for camera in cameras:
+        for scene_id in scenes:
+            datadir = os.path.join(eld_folder, camera, f"scene-{scene_id}")
+            for img_id, gt_id in zip(img_ids, gt_ids):
+                pairs.append((os.path.join(datadir, f"IMG_{img_id:04d}{suffix}"),
+                              os.path.join(datadir, f"IMG_{gt_id:04d}{suffix}")))
+    return pairs

@@ -1,17 +1,21 @@
 """Host-side raw ingestion: decode, numpy packing, training noise pairs,
-the packed-frame cache and the PMN dark-shading resources.
+the packed-frame cache, the PMN dark-shading resources and the EXIF and
+raw-file helpers of the evaluation.
 
-Port of the generation and training subset of noisediff_tpu/data/raw_host.py
-and of `make_noise_pair` (noisediff_tpu/data/native.py:94-125). A `.npy`
-sidecar next to an `.ARW` path is read in place of the raw file (how test
-and smoke trees are made without LibRaw); rawpy is imported only when a
-real raw file has to be decoded. Packing is numpy (raw_util.py:17-35).
+Port of noisediff_tpu/data/raw_host.py and of `make_noise_pair`
+(noisediff_tpu/data/native.py:94-125). A `.npy` sidecar next to an `.ARW`
+path is read in place of the raw file, and a `.meta.json` sidecar in place
+of its EXIF (how test and smoke trees are made without LibRaw); rawpy and
+exifread are imported only when a real raw file has to be read. Packing is
+numpy (raw_util.py:17-35).
 """
 from __future__ import annotations
 
+import json
 import os
 import pickle
-from typing import Dict, Optional
+from fractions import Fraction
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -80,6 +84,83 @@ def decode_bayer(path: str) -> np.ndarray:
         ) from exc
     with rawpy.imread(path) as raw:
         return raw.raw_image_visible.astype(np.float32)
+
+
+def extract_iso_from_exif(path: str) -> Optional[int]:
+    """The EXIF ISO tag (raw_util.py:142-158); None where exifread is not
+    installed or the tag is absent."""
+    try:
+        import exifread  # type: ignore
+    except ImportError:
+        return None
+    try:
+        with open(path, "rb") as f:
+            tags = exifread.process_file(f)
+        if "EXIF ISOSpeedRatings" in tags:
+            return int(str(tags["EXIF ISOSpeedRatings"]))
+        return None
+    except Exception:
+        return None
+
+
+def _exif_number(tag) -> float:
+    """An EXIF rational or integer ('1/30', '800') as a number."""
+    return float(Fraction(str(tag).strip()))
+
+
+def metainfo(path: str) -> Tuple[float, float]:
+    """(iso, exposure time) of a raw file (test_denoising.py:302-315): from
+    a '<path>.meta.json' or '<stem>.meta.json' sidecar ({"iso": ...,
+    "exposure": ...}) where there is one, else from EXIF (exifread, which
+    the ELD evaluation then needs); a .dng keeps them under 'Image' tags."""
+    for cand in (path + ".meta.json", os.path.splitext(path)[0] + ".meta.json"):
+        if os.path.exists(cand):
+            with open(cand, "r") as f:
+                m = json.load(f)
+            return float(m["iso"]), float(m["exposure"])
+
+    import exifread  # type: ignore
+
+    with open(path, "rb") as f:
+        tags = exifread.process_file(f)
+    group = "Image" if os.path.splitext(path)[1] == ".dng" else "EXIF"
+    return _exif_number(tags[f"{group} ISOSpeedRatings"]), _exif_number(
+        tags[f"{group} ExposureTime"])
+
+
+def modify_raw_file(raw_file: str, tab: np.ndarray, position, out_file: str) -> None:
+    """Write a uint16 plane into a copy of an uncompressed ARW / DNG
+    (raw_util.py:324-348): the mosaic is the file's last l * c * 2 bytes and
+    everything before it is copied as the header; `tab` goes at (y, x)."""
+    import rawpy  # type: ignore  # the file's geometry
+
+    with rawpy.imread(raw_file) as raw:
+        l, c = raw.raw_image.shape
+    with open(raw_file, "rb") as f:
+        blob = f.read()
+    mosaic = np.frombuffer(blob[-l * c * 2:], dtype=np.uint16).reshape(l, c).copy()
+    header = blob[: -l * c * 2]
+    y, x = position
+    mosaic[y: y + tab.shape[0], x: x + tab.shape[1]] = tab
+    with open(out_file, "wb") as f:
+        f.write(header)
+        f.write(mosaic.tobytes())
+
+
+def vis_raw_file(raw_file, save_path: str, save_file: bool = True) -> np.ndarray:
+    """LibRaw postprocess to sRGB in [0, 255] float (raw_util.py:351-373),
+    saved through PIL when save_file; raw_file a path or a rawpy image."""
+    import rawpy  # type: ignore
+
+    raw = rawpy.imread(raw_file) if isinstance(raw_file, str) else raw_file
+    rgb = raw.postprocess(use_camera_wb=True, half_size=False, no_auto_bright=True,
+                          output_bps=16)
+    rgb = np.clip(np.float32(rgb / 65535.0) * 255.0, 0, 255)
+    if save_file:
+        from PIL import Image
+
+        Image.fromarray(rgb.astype(np.uint8)).save(save_path)
+    return rgb
 
 
 def load_packed(path: str, rescale: bool = True) -> np.ndarray:

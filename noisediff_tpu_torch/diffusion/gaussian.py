@@ -232,6 +232,18 @@ class GaussianDiffusion:
                               device=img.device)
         return self.p_losses(self.normalize(img), t, condition, noise=noise, generator=generator)
 
+    def fused_tail_trunk(self) -> Optional[TrunkFn]:
+        """The `trunk_fn` that takes DDIM through the fused tail: where the
+        model has a trunk (`NoiseDiffNet.trunk`) and the objective is
+        pred_v; None otherwise."""
+        model = self.model_fn
+        if not hasattr(model, "trunk") or self.objective != "pred_v":
+            return None
+
+        def trunk_fn(x, t, condition):
+            return (*model.trunk(x, t, condition), model.head_weights())
+        return trunk_fn
+
     def _init(self, shape, generator, init_noise) -> torch.Tensor:
         if init_noise is not None:
             return init_noise.to(device=self.device, dtype=torch.float32)

@@ -8,6 +8,9 @@ network by --net_name, L1 and / or MSE losses, the per-epoch LR staircase
 and Shot-Noise Augmentation on the card (`train/state.
 make_denoising_train_step`), bf16 compute over fp32 parameters.
 
+With --phase test it builds --testset's loader instead (in order, not
+shuffled) and `.test()` runs the network over it.
+
 `.train()` logs every --log_freq steps and, with --use_tb_logger, the
 losses every --vis_step_freq steps to `scalars.jsonl` under save_folder
 with 'weights' replaced by 'tb_logger'; writes a noisy | clean | output
@@ -33,7 +36,7 @@ import torch
 from ..cli.common import resolve_device, set_precision_flags
 from ..config import paths_from_args
 from ..data.datasets import DATASETS
-from ..data.loader import TrainLoader
+from ..data.loader import TrainLoader, generation_loader
 from ..models import define_network
 from ..utils.logging import ScalarLogger
 from ..weights import adam_state_from_jax, load_into, load_jax_opt_npz
@@ -51,13 +54,9 @@ _DARKSHADING_SETS = ("SyntheticNoisDiffDenoisingDataset", "RealSonyDenoisingData
 
 class Trainer:
     def __init__(self, args):
-        if args.phase != "train":
-            raise NotImplementedError(
-                "only --phase train is ported; the denoiser's evaluation is the "
-                "test_denoising CLI, not ported yet (ROADMAP.md, Queue 1 item 2)")
         if getattr(args, "launcher", "none") != "none":
             raise NotImplementedError(
-                "multi-process training is not ported yet (ROADMAP.md, Queue 1 item 6); "
+                "multi-process training is not ported yet (ROADMAP.md, Queue 1 item 3); "
                 "use --launcher none")
         self.args = args
         self.device = resolve_device(getattr(args, "device", "cuda"))
@@ -67,13 +66,21 @@ class Trainer:
         mixed = getattr(args, "mixed_precision", True)
         self.compute_dtype = torch.bfloat16 if mixed else None
 
-        kwargs = {}
-        if args.trainset in _DARKSHADING_SETS:
-            kwargs["sub_darkshading"] = getattr(args, "sub_darkshading", False)
-        self.train_dataset = DATASETS[args.trainset](self.paths, args.crop_size, seed=self.seed,
-                                                     **kwargs)
-        self.train_dataloader = TrainLoader(self.train_dataset, args.batch_size,
-                                            getattr(args, "num_workers", 2), seed=self.seed)
+        if args.phase == "train":
+            kwargs = {}
+            if args.trainset in _DARKSHADING_SETS:
+                kwargs["sub_darkshading"] = getattr(args, "sub_darkshading", False)
+            self.train_dataset = DATASETS[args.trainset](self.paths, args.crop_size,
+                                                         seed=self.seed, **kwargs)
+            self.train_dataloader = TrainLoader(self.train_dataset, args.batch_size,
+                                                getattr(args, "num_workers", 2), seed=self.seed)
+        else:  # --testset in order, unshuffled, the last batch short (trainer_denoising.py:74-80)
+            if args.testset not in DATASETS:
+                raise ValueError(f"--testset {args.testset!r} is not one of {sorted(DATASETS)}")
+            self.test_dataset = DATASETS[args.testset](self.paths, args.crop_size,
+                                                       seed=self.seed)
+            self.test_dataloader = generation_loader(self.test_dataset, args.batch_size,
+                                                     getattr(args, "num_workers", 0))
 
         # initial weights from the run seed, without touching the global RNG
         with torch.random.fork_rng(devices=[]):
@@ -84,16 +91,20 @@ class Trainer:
             auto_tag = ckpt.latest_epoch(args.snapshot_save_dir)
             if auto_tag is not None:
                 load_into(model, ckpt.component_path(args.snapshot_save_dir, "net", auto_tag))
-                if auto_tag.isdigit():
+                if auto_tag.isdigit() and args.phase == "train":
                     args.start_iter = max(args.start_iter, int(auto_tag) + 1)
                 logging.info("auto-resumed from net_%s", auto_tag)
             else:
                 logging.info("auto-resume: no snapshot found, starting fresh")
         elif args.resume and args.resume != ".":
             load_into(model, args.resume)  # .pth/.pt or a JAX .npz snapshot, strict
-        self.model = model.to(self.device, memory_format=torch.channels_last).train()
+        self.model = model.to(self.device, memory_format=torch.channels_last)
         logging.info("----- generator parameters: %f -----",
                      sum(p.numel() for p in self.model.parameters()) / 1e6)
+        if args.phase != "train":
+            self.model.eval().requires_grad_(False)
+            return
+        self.model.train()
 
         if getattr(args, "loss_mse", False):
             logging.info("  using mse loss...")
@@ -232,6 +243,21 @@ class Trainer:
         return {"steps": steps, "losses": losses, "snapshots": snapshots,
                 "step_seconds": step_seconds, "step_end_seconds": step_end_seconds,
                 "epoch_seconds": epoch_seconds, "loader_wait_seconds": loader_wait_seconds}
+
+    def test(self) -> int:
+        """The forward over the test loader under no_grad, as the JAX
+        trainer's vestigial test (trainer_denoising.py:267-273; the
+        evaluation proper is the test_denoising CLI); returns the batches
+        run."""
+        batches = 0
+        with torch.no_grad():
+            for batch in self.test_dataloader:
+                noisy = torch.from_numpy(np.ascontiguousarray(batch["noisy_img"]))
+                self.model(noisy.to(self.device))
+                batches += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return batches
 
     def _vis(self, epoch: int, batch) -> None:
         """noisy | clean | output strip of the batch's first sample, channels

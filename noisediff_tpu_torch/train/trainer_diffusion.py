@@ -120,7 +120,7 @@ class Trainer:
         if getattr(args, "launcher", "none") != "none":
             raise NotImplementedError(
                 "multi-process training and generation are not ported yet (ROADMAP.md, "
-                "Queue 1 item 10); use --launcher none")
+                "Queue 1 item 3); use --launcher none")
         if args.phase == "train" and getattr(args, "remat", False):
             raise NotImplementedError("--remat is not ported yet (ROADMAP.md, Queue 1)")
         self.args = args
@@ -344,11 +344,7 @@ class Trainer:
         spacing = getattr(self.args, "dpm_spacing", "lambda")
         if kind == "dpm":  # resolved (and reported) once per run, not per batch
             dpm_steps = gd.sampling_timesteps or default_dpm_steps(spacing, warn=True)
-        model = self.model
-        trunk_fn = None
-        if hasattr(model, "trunk") and gd.objective == "pred_v":
-            def trunk_fn(x, t, condition):
-                return (*model.trunk(x, t, condition), model.head_weights())
+        trunk_fn = gd.fused_tail_trunk()
 
         def fn(condition, generator):
             if kind == "dpm":

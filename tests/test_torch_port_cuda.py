@@ -894,3 +894,106 @@ def test_lsid_step_under_pallas_wgrad(dev, monkeypatch):
     assert launch_counts()["conv_wgrad"] > 0
     for name in want:
         assert _rel(got[name], want[name]) < 2e-2, name
+
+
+@pytest.mark.parametrize("shape", [(64, 96, 4), (35, 51, 4)])
+def test_metrics_on_card_match_cpu(dev, shape):
+    """PSNR, SSIM (both protocols) and the illuminance correction on the
+    card against the CPU, fp32 on both (sums in another order)."""
+    from noisediff_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 1, shape).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, shape), 0, 1).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for fn in (M.psnr, M.ssim, M.ssim_matlab):
+        got = fn(ta.to(dev), tb.to(dev))
+        assert got.device.type == "cuda"
+        assert abs(float(got) - float(fn(ta, tb))) <= 1e-5 * max(1.0, abs(float(fn(ta, tb))))
+    got = M.illuminance_correct(ta.to(dev), tb.to(dev)).cpu()
+    assert _rel(got, M.illuminance_correct(ta, tb)) < 1e-6
+
+
+def test_evaluate_on_card_matches_cpu(dev, tmp_path):
+    """The test_denoising CLI's evaluate on the card against the CPU on a
+    small SID tree (dark shading, illuminance correction): each frame's
+    PSNR within 1e-3 dB, SSIM within 1e-5, no kernel of the port
+    launched."""
+    import pickle
+
+    from noisediff_tpu_torch.cli import test_denoising
+    from noisediff_tpu_torch.models import LSID
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(1)
+    sid = tmp_path / "SID"
+    lines = []
+    for i in (1, 2):
+        for sub, fn, scale in (("short", f"{i:05d}_00_0.04s.ARW", 1 / 250),
+                               ("long", f"{i:05d}_00_10s.ARW", 1.0)):
+            (sid / "Sony" / sub).mkdir(parents=True, exist_ok=True)
+            frame = 512 + rng.uniform(500, 12000, (96, 128)) * scale + rng.normal(0, 2, (96, 128))
+            np.save(sid / "Sony" / sub / (fn + ".npy"), np.clip(frame, 0, 16383).astype(np.uint16))
+        lines.append(f"./Sony/short/{i:05d}_00_0.04s.ARW ./Sony/long/{i:05d}_00_10s.ARW "
+                     "ISO800 F1.8\n")
+    (sid / "Sony_test_list.txt").write_text("".join(lines))
+    res = tmp_path / "res"
+    res.mkdir()
+    for band in ("low", "high"):
+        np.save(res / f"darkshading_{band}ISO_k.npy", rng.normal(0, 1e-3, (96, 128)))
+        np.save(res / f"darkshading_{band}ISO_b.npy", rng.normal(0, 2, (96, 128)))
+    with open(res / "darkshading_BLE.pkl", "wb") as f:
+        pickle.dump({800: 0.3}, f)
+    torch.manual_seed(0)
+    torch.save(LSID(base_width=8).state_dict(), tmp_path / "net.pth")
+    argv = ["--resume", str(tmp_path / "net.pth"), "--lsid_width", "8", "--ratio", "250",
+            "--correct_darkshading", "--correct_illum", "--sid_folder", str(sid),
+            "--resources_path", str(res), "--save_folder", str(tmp_path / "out")]
+    reset_launch_counts()
+    card = test_denoising.evaluate(test_denoising.build_parser().parse_args(
+        argv + ["--device", "cuda"]))
+    assert not any(launch_counts().values())
+    cpu = test_denoising.evaluate(test_denoising.build_parser().parse_args(
+        argv + ["--device", "cpu"]))
+    assert card["n"] == cpu["n"] == 2
+    for a, b in zip(card["frames"], cpu["frames"]):
+        assert abs(a["PSNR"] - b["PSNR"]) <= 1e-3 and abs(a["SSIM"] - b["SSIM"]) <= 1e-5
+
+
+def test_fullframe_on_card_runs_the_kernels(dev):
+    """generate_full_frame on the card (dim 16, bf16, a 64 x 96 frame):
+    attn_tail, groupnorm_silu and dual_head launch 9, 42 and 1 times an
+    evaluation; the sample is finite and within bf16 rounding of the fp32
+    plain route's from the same noise."""
+    from noisediff_tpu_torch.diffusion.fullframe import generate_full_frame
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+
+    torch.manual_seed(0)
+    ref = NoiseDiffNet(dim=16)
+    clean = np.random.default_rng(2).uniform(0, 0.3, (64, 96, 4)).astype(np.float32)
+    x = torch.randn((1, 64, 96, 4), generator=torch.Generator().manual_seed(3))
+    out = {}
+    for name, dtype in (("kernels", torch.bfloat16), ("fp32", None)):
+        model = NoiseDiffNet(dim=16, dtype=dtype)
+        model.load_state_dict(ref.state_dict())
+        gd = GaussianDiffusion(model.to(dev, memory_format=torch.channels_last).eval(),
+                               make_schedule("sigmoid2", 1000), image_size=64, device=dev)
+        reset_launch_counts()
+        out[name] = generate_full_frame(gd, clean, 24, sampling_timesteps=3, init_noise=x)
+        counts = launch_counts()
+    assert not any(counts.values())  # the fp32 run
+    assert np.isfinite(out["kernels"]).all() and out["kernels"].shape == (64, 96, 4)
+    rel = np.linalg.norm(out["kernels"] - out["fp32"]) / np.linalg.norm(out["fp32"])
+    assert rel < 5e-2, rel
+    reset_launch_counts()
+    model = NoiseDiffNet(dim=16, dtype=torch.bfloat16)
+    model.load_state_dict(ref.state_dict())
+    gd = GaussianDiffusion(model.to(dev, memory_format=torch.channels_last).eval(),
+                           make_schedule("sigmoid2", 1000), image_size=64, device=dev)
+    generate_full_frame(gd, clean, 24, sampling_timesteps=2, init_noise=x)
+    c = launch_counts()
+    assert (c["fused_attn_tail"], c["fused_groupnorm_film_silu"], c["fused_dual_head"]) == (
+        18, 84, 2)

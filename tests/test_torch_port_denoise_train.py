@@ -299,7 +299,7 @@ def test_cli_defaults_to_the_card_and_raises_without_one(pipeline, monkeypatch):
         tdn.main(argv)
 
 
-@pytest.mark.parametrize("argv,err", [(["--phase", "test"], NotImplementedError),
+@pytest.mark.parametrize("argv,err", [(["--launcher", "jax"], NotImplementedError),
                                       (["--launcher", "pytorch"], NotImplementedError)])
 def test_cli_refuses_what_is_not_ported(pipeline, argv, err):
     root, _ = pipeline

@@ -36,6 +36,21 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+# the evaluation half and full-frame generation: modules with a JAX
+# counterpart of the same relative path, held by test_no_jax_imports too
+EVALUATION_MODULES = ("ops/metrics.py", "ops/noise_estimation.py", "cli/test_denoising.py",
+                      "cli/eval_kld.py", "diffusion/fullframe.py", "data/manifest.py",
+                      "data/raw_host.py")
+
+
+@pytest.mark.parametrize("rel", EVALUATION_MODULES)
+def test_evaluation_modules_are_ported_and_stand_alone(rel):
+    path = os.path.join(ROOT, "noisediff_tpu_torch", rel)
+    assert path in _port_files()
+    assert os.path.exists(os.path.join(ROOT, "noisediff_tpu", rel))
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
 def test_importing_the_port_loads_no_jax():
     mods = [
         "noisediff_tpu_torch." + os.path.relpath(p, os.path.join(ROOT, "noisediff_tpu_torch"))
