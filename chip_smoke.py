@@ -109,6 +109,32 @@ Every phase runs, in this order (any failure exits non-zero):
   dim96    a dim-96 NoiseDiffNet forward on its route (the heads on their
            plain version, the other kernels at 96..768 channels) at B 1,
            64^2, against the CPU
+Multi-process data parallelism, --remat and --profile (ranks are processes
+this script starts with torchrun's environment, `spawn_ranks`):
+  dist_cli denoise  (after denoise) the denoising CLI at script.sh:24's
+           config as spawned processes: --launcher none, and --launcher
+           pytorch at world size 1 over NCCL (and 2 with 2 cards): losses
+           bit-equal to --launcher none's, only rank 0 writes its run
+           directory, log and snapshots, which load strictly; steps/s
+  dist_gen (after it) the generation CLI with --launcher pytorch on 2
+           ranks (NCCL, which generation never calls, so both may share
+           one card), DPM-10 over the main phase's grid: disjoint patch sets
+           whose union has the main phase's names, finite, CHW
+  dist_cli (after fp32 training) the same for the training CLI at the
+           canonical config, 25 steps
+  profile  the training CLI with --profile under --launcher pytorch at
+           world size 1 (NCCL): the trace of steps 5-9 names the port's
+           kernels; device time by class and the NCCL all-reduce's share
+  dist_step  the canonical training step on 2 ranks under DDP (NCCL with
+           2 cards, else gloo over CUDA tensors on one card), 3 steps: both
+           ranks log the same loss and grad norm and end bit-equal; the
+           first step against one process on the concatenated batch (loss
+           and gradients within train_check's bounds, grad norm within
+           2e-2, updated parameters within 2 lr); each rank's peak memory
+  remat    the canonical training step with and without --remat: loss and
+           gradients within train_check's bounds (and whether bit-equal),
+           peak device memory and a step's time for both, the recompute's
+           extra launches
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -492,7 +518,9 @@ def kernels_attn_tail(randn):
         args = attn_tail_args(randn, x)
         plan = at.fwd_plan(BATCH, res * res, c, _build.sm_count(x.device), occ.get(c, 1))
         got = fused_attn_tail(*args)
-        err = compare("attn_tail", got, reference_attn_tail(*args))
+        want = reference_attn_tail(*args)
+        scale, cancel = attn_tail_scale(x, want, got)
+        err = compare("attn_tail", got, want, scale=scale)
         if not torch.equal(got, fused_attn_tail(*args)):
             raise AssertionError(f"attn_tail {res}^2 x {c}: two calls differ")
         ms = time_ms(lambda: fused_attn_tail(*args))
@@ -502,24 +530,31 @@ def kernels_attn_tail(randn):
         b_ms, b_by = attn_tail_bound(x)
         row = dict(shape=[BATCH, res, res, c], calls=ATTN_PER_EVAL[st], route=plan["route"],
                    launches_per_call=plan["launches"], ms=ms, device_ms=dev_ms, host_ms=host_ms,
-                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                   past_output_scale=cancel)
         other = ""
         if plan["route"] != "tiled" and c > 48:  # where the fused route was extended
             alt = lambda: at._launch(*args, 1e-5, route="tiled")  # noqa: E731
-            compare("attn_tail", alt(), reference_attn_tail(*args))
+            tiled = alt()
+            compare("attn_tail", tiled, want, scale=attn_tail_scale(x, want, tiled)[0])
+            del tiled
             row["tiled_device_ms"] = time_device_ms(alt)
             other = f", tiled route {row['tiled_device_ms']:.4f} on the card's clock"
         rows.append(row)
         log(f"  attn_tail {res}^2 x {c} ({plan['route']}): {ms:.4f} ms, dev {dev_ms:.4f} "
             f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; host {host_ms:.4f} per call; "
-            f"plain {plain:.4f}){other}, max abs err {err:.3g}, bit-equal across two calls")
-        del x, args, got
+            f"plain {plain:.4f}){other}, max abs err {err:.3g}, bit-equal across two calls; "
+            f"{cancel['n']} element(s) past atol + rtol |out|: {cancel['worst']}")
+        del x, args, got, want, scale
     for res, c in [(CROP >> i, 96 << i) for i in range(4)]:
         x = randn(1, res, res, c, dtype=torch.bfloat16)
         args = attn_tail_args(randn, x)
-        err = compare("attn_tail", fused_attn_tail(*args), reference_attn_tail(*args))
-        log(f"  attn_tail dim-96 width 1x{res}^2 x {c} ({at.fwd_route(c)}): max abs err {err:.3g}")
-        del x, args
+        got, want = fused_attn_tail(*args), reference_attn_tail(*args)
+        scale, cancel = attn_tail_scale(x, want, got)
+        err = compare("attn_tail", got, want, scale=scale)
+        log(f"  attn_tail dim-96 width 1x{res}^2 x {c} ({at.fwd_route(c)}): max abs err {err:.3g}"
+            f"; {cancel['n']} element(s) past atol + rtol |out|")
+        del x, args, got, want, scale
     return rows
 
 
@@ -861,7 +896,10 @@ def kernels_ragged(randn):
         args = attn_tail_args(randn, x, g)
         fa = args[:-1]
         got = fused_attn_tail(*fa)
-        err = compare("attn_tail", got, reference_attn_tail(*fa))
+        want = reference_attn_tail(*fa)
+        scale, cancel = attn_tail_scale(x, want, got)
+        err = compare("attn_tail", got, want, scale=scale)
+        del want, scale
         if not torch.equal(got, fused_attn_tail(*fa)):
             raise AssertionError(f"attn_tail {shape}: two calls differ")
         ms = time_ms(lambda: fused_attn_tail(*fa), reps=5)
@@ -869,7 +907,7 @@ def kernels_ragged(randn):
         plain = time_ms(lambda: reference_attn_tail(*fa), reps=3)
         b_ms, b_by = attn_tail_bound(x)
         fwd.append(dict(shape=list(shape), calls=0, ms=ms, device_ms=fdev_ms, plain_ms=plain,
-                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err, past_output_scale=cancel))
         berr, rels = check_attn_tail_bwd(f"{shape}", args)
         bms = time_ms(lambda: fused_attn_tail_bwd(*args), reps=5)
         dev_ms = time_device_ms(lambda: fused_attn_tail_bwd(*args), n=5)
@@ -878,7 +916,8 @@ def kernels_ragged(randn):
         bwd.append(dict(shape=list(shape), calls=0, ms=bms, device_ms=dev_ms, plain_ms=bplain,
                         bound_ms=bb_ms, bound_by=bb_by, max_abs_err=berr, rel_l2=rels))
         log(f"  ragged {shape}: attn_tail {ms:.4f} ms, dev {fdev_ms:.4f} (bound {b_ms:.4f}), "
-            f"max abs err {err:.3g}, bit-equal across two calls; backward {bms:.4f} ms, dev "
+            f"max abs err {err:.3g} ({cancel['n']} element(s) past atol + rtol |out|), "
+            f"bit-equal across two calls; backward {bms:.4f} ms, dev "
             f"{dev_ms:.4f} (bound {bb_ms:.4f}), worst rel L2 {max(rels.values()):.3g}, "
             "bit-equal across two calls")
         del x, g, args, fa
@@ -892,14 +931,14 @@ FULLFRAME_STAGES = [(FULLFRAME[0] >> i, FULLFRAME[1] >> i, DIM << i) for i in ra
 
 
 def attn_tail_scale(x, want, got):
-    """The scale of the attn_tail forward's bound at the full frame: |out -
-    x| + |x|. out = round(round(proj) + x) stores the proj output in bf16
-    before the residual add, so a rounding flip of proj (an fp32 sum in
-    another order) is relative to |proj| ~ |out - x|, which exceeds |out|
-    where the add cancels; over the full frame's 18 M to 145 M elements a
-    stage, such a flip can land there. Returns the scale and, for the log,
-    how many elements are past the |out|-scaled bound of the canonical
-    shapes, with the worst one's out, x, proj and error."""
+    """The scale of every attn_tail forward check's bound: |out - x| + |x|.
+    out = round(round(proj) + x) stores the proj output in bf16 before the
+    residual add, so a rounding flip of proj (an fp32 sum in another order)
+    is relative to |proj| ~ |out - x|, which exceeds |out| where the add
+    cancels (at 178 x 266 x 384 one element of 18 M: out 0.03125 = x
+    4.3125 + proj -4.28125, off by one ulp of proj). Returns the scale and,
+    for the log, how many elements are past the bound scaled by |out| alone,
+    with the worst one's out, x, proj and error."""
     rtol, atol = TOLS["attn_tail"]
     g, w, xf = got.float(), want.float(), x.float()
     err = (g - w).abs()
@@ -1423,15 +1462,7 @@ def train_cli(seed: int, workdir: str, out_name: str, per_step, what: str):
     from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     out = os.path.join(workdir, out_name)
-    argv = [
-        "--use_tb_logger", "--save_epoch_freq", "1", "--generation_result", "noise",
-        "--name", "train_diffusion", "--net_name", "NoiseDiffNet", "--beta_schedule", "sigmoid2",
-        "--positional_encoding", "--trainset", "SonyTrainDataset", "--dim", str(DIM),
-        "--crop_size", str(CROP), "--with_camera_settings", "--batch_size", str(BATCH),
-        "--max_iter", "1", "--random_seed", str(seed), "--device", "cuda",
-        "--num_workers", "4", "--log_freq", "5",
-        "--sid_folder", os.path.join(workdir, "SID"), "--save_folder", out,
-    ]
+    argv = train_argv(seed, workdir, out)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -2189,7 +2220,7 @@ def phase_denoise(seed: int, workdir: str, gen_dir: str):
                 samples_per_s=DENOISE_BATCH / period, run_steps_per_s=steps / sum(wall),
                 item_ms=item_ms,
                 step_ms=step_s * 1e3, peak_bytes=peak, losses=summary["losses"],
-                epoch_seconds=wall)
+                epoch_seconds=wall, argv=argv, snapshots=sorted(want))
 
 
 def phase_denoise_profile(seed: int, cli_period_ms: float):
@@ -2538,6 +2569,520 @@ def phase_fullframe(seed: int, ckpt: str, sid: str):
                 rel_kernels_plain16=r_kp)
 
 
+# ---------------------------------------------------------------------------
+# multi-process data parallelism, --remat and --profile
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3  # the 2-rank step's depth
+PORT_DIR = os.path.dirname(os.path.abspath(__file__))
+RANK_TIMEOUT = 300  # seconds a spawned rank may take
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(job: dict, world: int, workdir: str, launcher_env: bool = True):
+    """Run `job` (rank_main) as `world` processes with torchrun's environment
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT on a free local
+    port; launcher_env False gives one process no launcher environment),
+    each with its output in workdir/<job>.rank<r>.log; returns each rank's
+    result (JSON). Every process still running is killed on the way out."""
+    port = free_port()
+    procs, logs = [], []
+    tag = job["job"] + "-" + str(job.get("name", ""))
+    try:
+        for rank in range(world):
+            env = dict(os.environ, CHIP_SMOKE_JOB=json.dumps(job),
+                       PYTHONPATH=os.pathsep.join(
+                           [PORT_DIR] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+            for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+                env.pop(k, None)
+            if launcher_env:
+                env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            logs.append(os.path.join(workdir, f"{tag}.rank{rank}.log"))
+            with open(logs[-1], "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c",
+                     "import sys, chip_smoke; sys.exit(chip_smoke.rank_main())"],
+                    cwd=PORT_DIR, env=env, stdout=out, stderr=subprocess.STDOUT))
+        t0 = time.time()
+        for rank, p in enumerate(procs):
+            code = p.wait(timeout=max(1.0, RANK_TIMEOUT - (time.time() - t0)))
+            if code != 0:
+                with open(logs[rank]) as f:
+                    tail = f.read()[-6000:]
+                raise AssertionError(f"{tag}: rank {rank} of {world} exited {code}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    warned = []
+    for path in logs:
+        with open(path) as f:
+            warned += [ln.strip() for ln in f if "Warning" in ln or "warning" in ln]
+    if warned:
+        log(f"  warnings in the ranks' output: {sorted(set(warned))[:6]}")
+    results = []
+    for rank in range(world):
+        with open(job["result"] % rank) as f:
+            results.append(json.load(f))
+    return results
+
+
+def rank_main() -> int:
+    """One process that chip_smoke spawned (spawn_ranks): the job in
+    CHIP_SMOKE_JOB. "dist_step": the canonical training step on this rank's
+    rows of the global batch, under DDP over job["backend"]; "cli": one of
+    the port's CLIs' main. Writes its result to job["result"] % rank."""
+    import torch
+
+    job = json.loads(os.environ["CHIP_SMOKE_JOB"])
+    rank = int(os.environ.get("RANK", "0"))
+    if job["job"] == "dist_step":
+        out = dist_step_rank(job)
+    else:
+        from noisediff_tpu_torch.cli import test_diffusion, train_denoising, train_diffusion
+        from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+        cli = {"test_diffusion": test_diffusion, "train_denoising": train_denoising,
+               "train_diffusion": train_diffusion}[job["cli"]]
+        argv = [a.replace("{rank}", str(rank)) for a in job["argv"]]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = cli.main(argv)
+        wall = time.perf_counter() - t0
+        out = {k: summary[k] for k in ("steps", "losses", "step_end_seconds", "step_seconds",
+                                       "snapshots", "generated", "batches", "batch_seconds",
+                                       "out_dir", "epoch_seconds") if k in summary}
+        out.update(launches=launch_counts(), wall_s=wall,
+                   peak_bytes=torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0)
+    with open(job["result"] % rank, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _train_model(seed: int, dev, dtype, remat=False):
+    """The full-width NoiseDiffNet from the seed on `dev`, channels-last, in
+    training mode."""
+    import torch
+
+    from noisediff_tpu_torch.models import NoiseDiffNet
+
+    torch.manual_seed(seed)
+    model = NoiseDiffNet(dim=DIM, dtype=dtype, remat=remat)
+    return model.to(dev, memory_format=torch.channels_last).train()
+
+
+def _param_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_step_rank(job):
+    """The body of one dist_step rank: the canonical training step (dim 48,
+    crop 512, bf16, Adam) on this rank's rows of the global batch of
+    BATCH, DIST_STEPS times. Rank 0 saves the first step's all-reduced
+    gradients and updated parameters; every rank returns its logged
+    metrics, a digest of its parameters after the last step, its peak
+    memory, its launches and its steps' CUDA-event times."""
+    import torch
+
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import is_unread_parameter
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+    from noisediff_tpu_torch.parallel import mesh
+    from noisediff_tpu_torch.train.state import make_diffusion_train_step, make_optimizer
+    from noisediff_tpu_torch.train.trainer_diffusion import step_seed
+
+    seed = job["seed"]
+    shard, dev = mesh.setup(torch.device("cuda"), job["backend"])
+    model = _train_model(seed, dev, torch.bfloat16)
+    net = mesh.wrap(model, dev, is_unread_parameter)
+    gd = GaussianDiffusion(net, make_schedule("sigmoid2", 1000), image_size=CROP, device=dev)
+    step = make_diffusion_train_step(gd, make_optimizer(model.parameters()), shard=shard)
+    batch = {k: shard.rows(v) for k, v in
+             _canonical_batch(torch.Generator(device=dev).manual_seed(seed), dev).items()}
+    g = torch.Generator(device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    metrics, ms = [], []
+    for i in range(DIST_STEPS):
+        g.manual_seed(step_seed(seed, i))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(batch, g)
+        end.record()
+        metrics.append({k: float(v) for k, v in m.items()})
+        ms.append(start.elapsed_time(end))
+        if i == 0 and shard.rank == 0:
+            torch.save({"grads": {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                                  if p.grad is not None},
+                        "params": {n: p.detach().cpu() for n, p in model.named_parameters()}},
+                       job["first_step"])
+    out = dict(rank=shard.rank, world=shard.world, backend=torch.distributed.get_backend(),
+               device=str(dev), metrics=metrics, step_ms=ms, digest=_param_digest(model),
+               peak_bytes=torch.cuda.max_memory_allocated(dev), launches=launch_counts())
+    mesh.teardown()
+    return out
+
+
+def reference_steps(seed: int):
+    """One process, the whole global batch: the canonical training step's
+    first step with the dist_step ranks' weights, batch and draws, in bf16
+    (stored activations and --remat) and fp32 on the card. Returns, for
+    each, the loss, grad norm, gradients and updated parameters (on the
+    host), the first step's launches and peak device memory and, for bf16,
+    a step's time (CUDA events, median of 5) and device busy time
+    (torch.profiler over 3 steps)."""
+    import torch
+
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+    from noisediff_tpu_torch.train.state import make_diffusion_train_step, make_optimizer
+    from noisediff_tpu_torch.train.trainer_diffusion import step_seed
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, dtype, remat in (("bf16", torch.bfloat16, False), ("remat", torch.bfloat16, True),
+                               ("fp32", None, False)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = _train_model(seed, dev, dtype, remat)
+        gd = GaussianDiffusion(model, make_schedule("sigmoid2", 1000), image_size=CROP, device=dev)
+        step = make_diffusion_train_step(gd, make_optimizer(model.parameters()))
+        batch = _canonical_batch(torch.Generator(device=dev).manual_seed(seed), dev)
+        g = torch.Generator(device=dev).manual_seed(step_seed(seed, 0))
+        init = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        reset_launch_counts()
+        m = step(batch, g)
+        r = dict(loss=float(m["diffusion_loss"]), grad_norm=float(m["grad_norm"]), init=init,
+                 launches=launch_counts(), peak_bytes=torch.cuda.max_memory_allocated(),
+                 grads={n: p.grad.float().cpu() for n, p in model.named_parameters()
+                        if p.grad is not None},
+                 params={n: p.detach().cpu() for n, p in model.named_parameters()})
+        if dtype is not None:
+            r["step_ms"] = time_ms(lambda: step(batch, g), reps=5, warmup=1)
+            r["peak_bytes_steps"] = torch.cuda.max_memory_allocated()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(3):
+                    step(batch, g)
+                torch.cuda.synchronize()
+            r["busy_ms"] = sum(_device_ms_by_name(prof, 3).values())
+        out[name] = r
+        del model, gd, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist_step(seed: int, workdir: str, ref):
+    """The canonical training step (dim 48, crop 512, global batch 4,
+    bf16) on 2 ranks, DDP: over NCCL where the machine has 2 cards, else
+    over gloo on CUDA tensors with both ranks on one card (NCCL refuses two
+    ranks on one card). Both ranks log the same loss and grad norm and end
+    with bit-equal parameters after DIST_STEPS steps; the first step's
+    loss and all-reduced gradients agree with the one-process step on the
+    concatenated batch with the same draws (`ref`) within train_check's
+    bf16 bounds (_check_grads: the fp32 step as the reference), its grad
+    norm within 2e-2. Adam's first update moves an element by
+    lr * g / (|g| + eps), so the updated parameters are held where the two
+    gradients settle that sign: on every element whose one-process
+    gradient exceeds twice its distance to the 2-rank gradient and 1e-5
+    (1e3 Adam eps), both steps moved the parameter by the same +-lr, within
+    1e-2 lr (eps and fp32 rounding of the parameter), and such elements
+    are at least a quarter of the total (47.6% in the first reading: the
+    rest have gradients below 1e-5 or within twice the bf16 noise)."""
+    import torch
+
+    two = torch.cuda.device_count() >= 2
+    backend = "nccl" if two else "gloo"
+    first = os.path.join(workdir, "dist_first_step.pt")
+    job = dict(job="dist_step", name=backend, seed=seed, backend=backend, first_step=first,
+               result=os.path.join(workdir, "dist_step.rank%d.json"))
+    t0 = time.time()
+    r0, r1 = spawn_ranks(job, 2, workdir)
+    wall = time.time() - t0
+    if r0["metrics"] != r1["metrics"]:
+        raise AssertionError(f"dist_step: the ranks logged {r0['metrics']} and {r1['metrics']}")
+    if r0["digest"] != r1["digest"]:
+        raise AssertionError("dist_step: the ranks' parameters differ after "
+                             f"{DIST_STEPS} steps")
+    saved = torch.load(first, weights_only=True)
+    m0 = r0["metrics"][0]
+    b16, f32 = ref["bf16"], ref["fp32"]
+    checks = _check_grads("dist_step", BATCH, CROP, m0["diffusion_loss"], saved["grads"],
+                          b16["loss"], b16["grads"], f32["grads"])
+    if abs(m0["grad_norm"] - b16["grad_norm"]) > 2e-2 * b16["grad_norm"]:
+        raise AssertionError(f"dist_step: grad norm {m0['grad_norm']} against the one-process "
+                             f"step's {b16['grad_norm']}")
+    lr = 1e-4
+    worst, held, total = 0.0, 0, 0
+    for n, g in saved["grads"].items():
+        want = b16["grads"][n]
+        settled = want.abs() > torch.clamp(2 * (g - want).abs(), min=1e-5)
+        step2 = saved["params"][n].float() - b16["init"][n].float()
+        step1 = b16["params"][n].float() - b16["init"][n].float()
+        if bool(settled.any()):
+            worst = max(worst, float((step2 - step1).abs()[settled].max()))
+        held += int(settled.sum())
+        total += g.numel()
+    if worst > 1e-2 * lr or 4 * held < total:
+        raise AssertionError(f"dist_step: on {held} of {total} elements whose gradient sign "
+                             f"is settled the updates differ by up to {worst} (bound "
+                             f"{1e-2 * lr}; at least a quarter of the elements must be held)")
+    log(f"  2 ranks over {backend} ({r0['device']}, {r1['device']}), global batch {BATCH} "
+        f"({BATCH // 2} a rank), {DIST_STEPS} steps: both ranks logged losses "
+        f"{[round(m['diffusion_loss'], 6) for m in r0['metrics']]} and grad norms "
+        f"{[round(m['grad_norm'], 4) for m in r0['metrics']]}; parameters bit-equal across "
+        "the ranks")
+    log(f"  first step against one process on the concatenated batch: loss "
+        f"{m0['diffusion_loss']:.6f} / {b16['loss']:.6f}, grad norm {m0['grad_norm']:.6f} / {b16['grad_norm']:.6f}; "
+        f"Adam's first update equal within {worst:.3g} (bound {1e-2 * lr:.3g}) on the {held} of "
+        f"{total} elements whose gradient sign is settled")
+    for r in (r0, r1):
+        log(f"  rank {r['rank']}: peak device memory {r['peak_bytes'] / 2 ** 30:.3f} GiB; step "
+            f"CUDA-event ms {[round(v, 3) for v in r['step_ms']]}; launches {r['launches']}")
+    log(f"  {wall:.1f} s for both ranks, start-up included")
+    return dict(backend=backend, ranks=[r0, r1], checks=checks, held=held, total=total)
+
+
+def phase_remat(ref):
+    """The canonical training step with and without --remat (ref): the
+    loss and gradients within train_check's bounds (and whether they are
+    bit-equal), peak device memory and a step's time (CUDA events) for
+    both, and the kernels the recompute launches again."""
+    a, b = ref["bf16"], ref["remat"]
+    checks = _check_grads("remat", BATCH, CROP, b["loss"], b["grads"], a["loss"], a["grads"],
+                          ref["fp32"]["grads"], model="dim-48 --remat")
+    same = b["loss"] == a["loss"] and all(
+        bool((b["grads"][n] == g).all()) for n, g in a["grads"].items())
+    gib = 2 ** 30
+    log(f"  loss {b['loss']:.6f} with --remat, {a['loss']:.6f} without; loss and gradients "
+        f"{'bit-equal' if same else 'not bit-equal'}")
+    log(f"  peak device memory of the first step (Adam state included): "
+        f"{b['peak_bytes'] / gib:.3f} GiB with --remat, {a['peak_bytes'] / gib:.3f} without; "
+        f"a step's device busy time {b['busy_ms']:.4f} ms with, {a['busy_ms']:.4f} without "
+        f"(torch.profiler, 3 steps); the step {b['step_ms']:.4f} / {a['step_ms']:.4f} ms "
+        "(CUDA events around it, host waits included, median of 5)")
+    extra = {k: b["launches"][k] - a["launches"][k] for k in a["launches"]
+             if b["launches"][k] != a["launches"][k]}
+    log(f"  launches a step with --remat {b['launches']}; the recompute's extra {extra}")
+    return dict(bit_equal=same, checks=checks, peak_bytes=b["peak_bytes"],
+                plain_peak_bytes=a["peak_bytes"], step_ms=b["step_ms"], plain_step_ms=a["step_ms"],
+                busy_ms=b["busy_ms"], plain_busy_ms=a["busy_ms"],
+                launches=b["launches"], extra_launches=extra)
+
+
+def train_argv(seed: int, workdir: str, out: str):
+    """The training CLI at the canonical config over the tree in workdir."""
+    return [
+        "--use_tb_logger", "--save_epoch_freq", "1", "--generation_result", "noise",
+        "--name", "train_diffusion", "--net_name", "NoiseDiffNet", "--beta_schedule", "sigmoid2",
+        "--positional_encoding", "--trainset", "SonyTrainDataset", "--dim", str(DIM),
+        "--crop_size", str(CROP), "--with_camera_settings", "--batch_size", str(BATCH),
+        "--max_iter", "1", "--random_seed", str(seed), "--device", "cuda",
+        "--num_workers", "4", "--log_freq", "5",
+        "--sid_folder", os.path.join(workdir, "SID"), "--save_folder", out,
+    ]
+
+
+def _cli_rate(res) -> float:
+    """Steps/s on the card's clock from the end of step 3 on of a CLI run's
+    result: the mean gap between consecutive step ends within an epoch
+    (each epoch's ends are counted from its own first step)."""
+    ends, per_epoch = res["step_end_seconds"], res["steps"] // len(res["epoch_seconds"])
+    gaps = [ends[i + 1] - ends[i] for i in range(2, res["steps"] - 1) if (i + 1) % per_epoch]
+    return len(gaps) / sum(gaps)
+
+
+# rank 0's snapshots of a one-epoch run of the training CLI
+TRAIN_SNAPSHOTS = [f"{c}_{e}.pth" for c, e in (("net", 0), ("ema", 0), ("optimizer_G", 0),
+                                               ("net", "final"), ("ema", "final"))]
+
+
+def _load_noisediffnet(snap: str) -> None:
+    import torch
+
+    from noisediff_tpu_torch.models import NoiseDiffNet
+
+    for c in ("net", "ema"):
+        NoiseDiffNet(dim=DIM).load_state_dict(torch.load(
+            os.path.join(snap, f"{c}_final.pth"), map_location="cpu", weights_only=True))
+
+
+def _load_lsid(snap: str) -> None:
+    import torch
+
+    from noisediff_tpu_torch.models import LSID
+
+    LSID().load_state_dict(torch.load(os.path.join(snap, "net_final.pth"), map_location="cpu",
+                                      weights_only=True))
+
+
+def phase_dist_cli(workdir: str, what: str, argv, snapshots, load):
+    """One of the training CLIs as spawned processes: --launcher none (one
+    process, no launcher environment) and --launcher pytorch at world size
+    1 over NCCL, and world size 2 where the machine has 2 cards, each rank
+    with its own save folder. The world-1 losses are bit-equal to the
+    --launcher none run's; only rank 0 creates its run directory, logs and
+    snapshots (`snapshots`: the file names), which `load` loads strictly;
+    steps/s and global samples/s beside the one-process run's."""
+    import torch
+
+    cli = "train_diffusion" if what == "train" else "train_denoising"
+    name = argv[len(argv) - 1 - argv[::-1].index("--name") + 1]  # the run's --name
+
+    def run(tag, world, launcher, env):
+        out = os.path.join(workdir, f"dist_{what}_{tag}", "rank{rank}", "weights")
+        job = dict(job="cli", name=f"{what}_{tag}", cli=cli,
+                   argv=argv + ["--launcher", launcher, "--save_folder", out],
+                   result=os.path.join(workdir, f"dist_{what}_{tag}.rank%d.json"))
+        return spawn_ranks(job, world, workdir, launcher_env=env), out
+
+    (one,), _ = run("none", 1, "none", False)
+    worlds = [1] + ([2] if torch.cuda.device_count() >= 2 else [])
+    out = {"none": one}
+    for world in worlds:
+        res, folder = run(f"world{world}", world, "pytorch", True)
+        if world == 1 and res[0]["losses"] != one["losses"]:
+            raise AssertionError(f"dist_cli {what}: world-1 NCCL losses {res[0]['losses']} are "
+                                 f"not bit-equal to --launcher none's {one['losses']}")
+        if any(r["losses"] != res[0]["losses"] for r in res):
+            raise AssertionError(f"dist_cli {what}: the ranks logged different losses")
+        run0 = os.path.join(folder.replace("{rank}", "0"), name)
+        if sorted(os.listdir(os.path.join(run0, "snapshot"))) != sorted(snapshots):
+            raise AssertionError(f"dist_cli {what}: rank 0 snapshots "
+                                 f"{sorted(os.listdir(os.path.join(run0, 'snapshot')))}")
+        if not glob.glob(os.path.join(run0, "*.log")):
+            raise AssertionError(f"dist_cli {what}: rank 0 wrote no log file")
+        for r in range(1, world):
+            if os.path.exists(os.path.dirname(folder.replace("{rank}", str(r)))):
+                raise AssertionError(f"dist_cli {what}: rank {r} created a run directory")
+            if res[r]["snapshots"]:
+                raise AssertionError(f"dist_cli {what}: rank {r} saved {res[r]['snapshots']}")
+        load(os.path.join(run0, "snapshot"))
+        out[f"world{world}"] = res
+    if what == "train":  # second readings, in the order none, world 1, world 1, none
+        (out["world1 again"],), _ = run("world1_again", 1, "pytorch", True)
+        out["none again"] = run("none_again", 1, "none", False)[0][0]
+    per = BATCH if what == "train" else DENOISE_BATCH
+    for tag, res in out.items():
+        res = res if isinstance(res, list) else [res]
+        world = len(res)
+        rate = _cli_rate(res[0])
+        log(f"  {what} {tag}: --launcher {'none' if 'none' in tag else 'pytorch'} world {world}"
+            f"{'' if 'none' in tag else ' (NCCL)'}: {res[0]['steps']} steps a rank, "
+            f"{rate:.4f} steps/s after the first 3 on the card's clock, {rate * per:.4f} global "
+            f"samples/s; the run {res[0]['wall_s']:.2f} s wall; peak device memory "
+            f"{res[0]['peak_bytes'] / 2 ** 30:.3f} GiB a rank; losses "
+            f"{res[0]['losses'][0]:.6f} -> {res[0]['losses'][-1]:.6f}")
+    log(f"  world-1 NCCL losses bit-equal to --launcher none's ({len(one['losses'])} steps); "
+        "only rank 0 wrote its run directory, log and snapshots, which load strictly")
+    return out
+
+
+def phase_dist_gen(seed: int, workdir: str, ckpt: str, main_files):
+    """test_diffusion --launcher pytorch with 2 ranks (NCCL, which
+    generation never calls, so two ranks may share one card), DPM-10 over
+    the main phase's grid, each rank with its own save folder: disjoint npy
+    sets whose union has the one-process run's names; every patch finite
+    in the reference CHW layout."""
+    import numpy as np
+
+    argv = gen_argv(workdir, ckpt, seed, "dist_gen/rank{rank}", ["--sampler", "dpm"])
+    job = dict(job="cli", name="gen", cli="test_diffusion", argv=argv + ["--launcher", "pytorch"],
+               result=os.path.join(workdir, "dist_gen.rank%d.json"))
+    t0 = time.time()
+    res = spawn_ranks(job, 2, workdir)
+    wall = time.time() - t0
+    names = []
+    for r in res:
+        files = sorted(glob.glob(os.path.join(r["out_dir"], "*.npy")))
+        for path in files:
+            arr = np.load(path)
+            if arr.shape != (4, CROP, CROP) or not np.isfinite(arr).all():
+                raise AssertionError(f"dist_gen: {path}: {arr.shape} or not finite")
+        names.append({os.path.basename(p) for p in files})
+    want = {os.path.basename(p) for p in main_files}
+    if names[0] & names[1] or names[0] | names[1] != want or not all(names):
+        raise AssertionError(f"dist_gen: rank sets {names} against the one-process set {want}")
+    log(f"  2 ranks wrote {len(names[0])} + {len(names[1])} disjoint patches, the one-process "
+        f"run's {len(want)} names, finite, CHW; batch seconds "
+        f"{[[round(s, 4) for s in r['batch_seconds']] for r in res]}; {wall:.1f} s wall, "
+        "start-up included")
+    log(f"  launches by rank: {[r['launches'] for r in res]}")
+    return dict(ranks=res)
+
+
+def phase_profile_cli(seed: int, workdir: str):
+    """The training CLI with --profile under --launcher pytorch over NCCL,
+    at world size 2 where the machine has 2 cards, else 1: rank 0's trace
+    of steps 5-9 exists under <save_folder>/profile and names the port's
+    kernels with nonzero launches; the device time by kernel class and of
+    the copies, and the NCCL all-reduce's share of the steps' device time
+    and of their span (at world size 1 NCCL's in-place all-reduce of one
+    rank launches nothing: DDP's cost there is its bucket copies)."""
+    import torch
+
+    world = 2 if torch.cuda.device_count() >= 2 else 1
+    out = os.path.join(workdir, "dist_profile", "rank{rank}", "weights")
+    argv = train_argv(seed, workdir, out) + ["--launcher", "pytorch", "--profile"]
+    job = dict(job="cli", name="profile", cli="train_diffusion", argv=argv,
+               result=os.path.join(workdir, "dist_profile.rank%d.json"))
+    spawn_ranks(job, world, workdir)
+    traces = glob.glob(os.path.join(out.replace("{rank}", "0"), "train_diffusion", "profile",
+                                    "*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile: traces {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("profile: the trace has no kernel events")
+    launches, ms = {}, {}
+    for e in kernels + [e for e in events if e.get("cat") == "gpu_memcpy"]:
+        if e.get("cat") == "gpu_memcpy":
+            cat = "copies (gpu_memcpy)"
+        elif "nccl" in e["name"].lower():
+            cat = "NCCL all-reduce"
+        else:
+            cat = _category(e["name"])
+        launches[cat] = launches.get(cat, 0) + 1
+        ms[cat] = ms.get(cat, 0.0) + e.get("dur", 0) / 1e3
+    for cat in ("attn_tail kernel", "attn_tail backward kernel",
+                "GroupNorm statistics (gn_stats)", "gn_grad_stats kernel", "dual_head kernel"):
+        if not launches.get(cat):
+            raise AssertionError(f"profile: the trace names no {cat}: {launches}")
+    steps = 5
+    busy = sum(ms.values())
+    span = (max(e["ts"] + e.get("dur", 0) for e in kernels) - min(e["ts"] for e in kernels)) / 1e3
+    nccl = ms.get("NCCL all-reduce", 0.0)
+    log(f"  {os.path.relpath(traces[0], workdir)}: {len(kernels)} kernels over {steps} steps; "
+        f"device busy {busy / steps:.4f} ms a step, the kernels' span {span / steps:.4f} ms a step")
+    log(f"  NCCL all-reduce (world {world}): {launches.get('NCCL all-reduce', 0)} kernels, "
+        f"{nccl / steps:.4f} ms a step, {nccl / busy:.4f} of the busy time, {nccl / span:.4f} "
+        "of the span")
+    for cat, v in sorted(ms.items(), key=lambda kv: -kv[1]):
+        log(f"    {v / steps:9.4f} ms a step  {launches[cat] / steps:7.1f} launches a step  {cat}")
+    return dict(world=world, launches=launches, ms=ms, busy_ms=busy / steps,
+                span_ms=span / steps, nccl_ms=nccl / steps)
+
+
 KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
                    "fused_dual_head", "fused_ddim_head_update", "gn_stats", "gn_grad_stats",
                    "conv_wgrad", "flash_attention")
@@ -2676,6 +3221,12 @@ def main(argv=None) -> int:
         log("[denoise] LSID trained through the denoising CLI on the main phase's patches")
         denoise = phase_denoise(args.seed, workdir, os.path.join(
             workdir, "out", "ISO800_Ratio250", "npy", "generated"))
+        log("[dist_cli denoise] the denoising CLI under --launcher pytorch, NCCL")
+        dist_denoise = phase_dist_cli(workdir, "denoise", denoise["argv"], denoise["snapshots"],
+                                      _load_lsid)
+        log("[dist_gen] generation through the CLI on 2 ranks, --launcher pytorch")
+        dist_gen = phase_dist_gen(args.seed, workdir, ckpt, glob.glob(os.path.join(
+            workdir, "out", "ISO800_Ratio250", "npy", "generated", "*.npy")))
         log("[denoise] SNA's Poisson draw on the card")
         check_poisson_on_card()
         log("[denoise profile] where a denoising step spends its time")
@@ -2702,10 +3253,25 @@ def main(argv=None) -> int:
         wgrad = phase_train_wgrad(args.seed, workdir, routed_per_step, train["steps_per_s"])
         log("[fp32] training through the CLI with --no_mixed_precision")
         phase_fp32_train(args.seed, workdir)
+        log("[dist_cli] the training CLI under --launcher pytorch, NCCL")
+        dist_train = phase_dist_cli(workdir, "train", train_argv(args.seed, workdir, ""),
+                                    TRAIN_SNAPSHOTS, _load_noisediffnet)
+        log("[profile] the training CLI with --profile, --launcher pytorch at world size 1")
+        profile_cli = phase_profile_cli(args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("[train profile] where a training step spends its time")
     phase_train_profile(args.seed, train["period_ms"])
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        log("[dist_step] the canonical training step on 2 ranks, DDP")
+        ref = reference_steps(args.seed)
+        dist_step = phase_dist_step(args.seed, workdir, ref)
+        log("[remat] the canonical training step with and without --remat")
+        remat = phase_remat(ref)
+        del ref
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     log("[attention] blocks.Attention forward and backward, card vs CPU")
     attn = phase_attention(args.seed)
     log("[dim96] a dim-96 NoiseDiffNet forward on its route, card vs CPU")
@@ -2722,7 +3288,13 @@ def main(argv=None) -> int:
             "launches_generation": gc[w], "launches_per_batch": gc[w] / N_BATCHES,
             "launches_ddim": dc[w], "launches_ddim_per_batch": dc[w] / N_BATCHES,
             "launches_training": tc[w], "launches_per_step": tc[w] / steps,
-            "launches_fullframe": fc[w]})
+            "launches_fullframe": fc[w],
+            # apart from the counts above: the spawned ranks' own counters
+            # and one --remat step
+            "launches_dist_step": sum(r["launches"][w] for r in dist_step["ranks"]),
+            "launches_dist_gen": sum(r["launches"][w] for r in dist_gen["ranks"]),
+            "launches_dist_train_world1": dist_train["world1"][0]["launches"][w],
+            "launches_remat_step": remat["launches"][w]})
     n = ddim["counts"]["fused_ddim_head_update"]
     launches["ddim_head"] = (n, {"launches_per_batch": n / N_BATCHES})
     n = wgrad["counts"]["conv_wgrad"]

@@ -1,10 +1,11 @@
 """Shared CLI plumbing: seeding, device selection, the device flags, the
 run directories.
 
-Port of the parts of noisediff_tpu/cli/common.py the generation and
-training CLIs need.
-Entry points run on CUDA unless the caller passes `--device cpu`; asking
-for CUDA on a machine without it is an error, never a silent CPU run.
+Port of noisediff_tpu/cli/common.py. Entry points run on CUDA unless the
+caller passes `--device cpu`; asking for CUDA on a machine without it is an
+error, never a silent CPU run. `init_distributed` joins the process group a
+launcher such as `torchrun` describes (`--launcher pytorch`, or its alias
+`jax`), one process per card.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..parallel import mesh
 
 
 def set_random_seed(seed: int) -> None:
@@ -32,15 +35,16 @@ def add_device_flags(parser) -> None:
                         help="accepted for reference-CLI compatibility; --device selects "
                              "the card")
     parser.add_argument("--launcher", choices=["none", "pytorch", "jax"], default="none",
-                        help="job launcher; only 'none' is ported (multi-process "
-                             "generation waits, see ROADMAP.md)")
+                        help="job launcher: 'pytorch' (or its alias 'jax') joins the process "
+                             "group torchrun's environment names (RANK, WORLD_SIZE, "
+                             "LOCAL_RANK, MASTER_ADDR, MASTER_PORT), one process per card")
     parser.add_argument("--local_rank", type=int, default=0)
     parser.add_argument("--mixed_precision", action="store_true", default=True,
                         help="bf16 compute with an fp32 sample carry (default)")
     parser.add_argument("--no_mixed_precision", dest="mixed_precision", action="store_false")
     parser.add_argument("--profile", action="store_true",
-                        help="accepted for JAX-CLI compatibility; step traces are not ported "
-                             "yet (ROADMAP.md)")
+                        help="write a torch.profiler trace of training steps 5-9 of the first "
+                             "epoch under <save_folder>/profile")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -52,6 +56,28 @@ def resolve_device(name: str) -> torch.device:
             "pass --device cpu to run on the CPU"
         )
     return device
+
+
+def init_distributed(args) -> None:
+    """Set args.dist, args.rank and args.world_size (JAX
+    cli/common.init_distributed): `--launcher none` runs one process (dist
+    False, rank -1, world size 1); 'pytorch' and its alias 'jax' join the
+    process group a launcher's environment names (parallel.mesh.setup) and
+    run one process without one, as the JAX package does without a
+    coordinator. dist and the rank follow JAX: dist where the world is
+    larger than 1, rank -1 otherwise; a world of 1 under torchrun still
+    trains through DDP on its one-rank group. On the card each rank takes
+    card LOCAL_RANK (modulo the cards present) as its current device and
+    args.device; the backend is NCCL on the card and gloo on the CPU."""
+    if args.launcher == "none":
+        args.dist, args.rank, args.world_size = False, -1, 1
+        print("Disabled distributed training.")
+        return
+    shard, device = mesh.setup(resolve_device(args.device))
+    args.dist = shard.world > 1
+    args.world_size = shard.world
+    args.rank = shard.rank if args.dist else -1
+    args.device = str(device)
 
 
 def set_precision_flags() -> None:
@@ -72,10 +98,14 @@ _RUN_LOG = "noisediff_tpu_torch.run_log"
 def setup_run_dirs(args, with_logger: bool = True) -> None:
     """<save_folder>/<name> with its vis/ and snapshot/ directories
     (args.vis_save_dir, args.snapshot_save_dir), and a timestamped log file
-    there that receives this run's log records."""
+    there that receives this run's log records; the directories and the
+    log file on rank 0 (or the one process) only."""
     args.save_folder = os.path.join(args.save_folder, args.name)
     args.vis_save_dir = os.path.join(args.save_folder, "vis")
     args.snapshot_save_dir = os.path.join(args.save_folder, "snapshot")
+    if getattr(args, "rank", -1) > 0:
+        print_args(args)
+        return
     os.makedirs(args.vis_save_dir, exist_ok=True)
     os.makedirs(args.snapshot_save_dir, exist_ok=True)
     if with_logger:

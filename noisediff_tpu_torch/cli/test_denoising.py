@@ -21,6 +21,8 @@ under --correct_illum and computes PSNR and SSIM; only those two numbers
 come back. --visualize_img writes each output as a PNG: LibRaw's
 postprocess where rawpy is installed and the raw file is present, else an
 R, (G1 + G2) / 2, B preview; both through PIL, which it then needs.
+`--launcher pytorch` joins the process group (on its card) as the JAX CLI
+does, and every rank evaluates every frame: the JAX CLI shards no frames.
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ import numpy as np
 import torch
 
 from ..config import add_path_flags, paths_from_args
-from .common import add_device_flags, print_args, resolve_device, set_random_seed
+from ..parallel import mesh
+from .common import (
+    add_device_flags, init_distributed, print_args, resolve_device, set_random_seed)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -242,15 +246,16 @@ def _save_visual(args, in_path: str, gt_path: str, out_hwc4: np.ndarray) -> str:
 def main(argv=None):
     """Evaluate; returns `evaluate`'s result."""
     args = build_parser().parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError("multi-process evaluation is not ported yet (ROADMAP.md, "
-                                  "Queue 1 item 3); use --launcher none")
     set_random_seed(args.random_seed)
     resolve_device(args.device)
-    if args.visualize_img:
-        os.makedirs(args.save_folder, exist_ok=True)
-    print_args(args)
-    return evaluate(args)
+    init_distributed(args)
+    try:
+        if args.visualize_img:
+            os.makedirs(args.save_folder, exist_ok=True)
+        print_args(args)
+        return evaluate(args)
+    finally:
+        mesh.teardown()
 
 
 if __name__ == "__main__":

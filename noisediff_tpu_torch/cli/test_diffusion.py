@@ -11,7 +11,9 @@ Port of noisediff_tpu/cli/test_diffusion.py: the same flags and defaults
     --sampler dpm --save_folder ./output/... --iso 800 --ratio 250
 
 ('--iso 800 --ratio 250' reach --iso_value/--ratio_value through argparse
-prefix abbreviation, as in the reference's script.sh:10.)
+prefix abbreviation, as in the reference's script.sh:10.) Under torchrun
+with `--launcher pytorch` each rank generates its strided shard of the
+patch grid and writes its own, disjoint, set of patches.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import argparse
 import os
 
 from ..config import add_path_flags
-from .common import add_device_flags, print_args, set_random_seed
+from ..parallel import mesh
+from .common import add_device_flags, init_distributed, print_args, set_random_seed
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,13 +90,17 @@ def main(argv=None):
     """Run generation; returns the trainer's summary of the run."""
     args = build_parser().parse_args(argv)
     set_random_seed(args.random_seed)
-    args.save_folder = os.path.join(args.save_folder, args.name)
-    os.makedirs(args.save_folder, exist_ok=True)
-    print_args(args)
+    init_distributed(args)
+    try:
+        args.save_folder = os.path.join(args.save_folder, args.name)
+        os.makedirs(args.save_folder, exist_ok=True)
+        print_args(args)
 
-    from ..train.trainer_diffusion import Trainer
+        from ..train.trainer_diffusion import Trainer
 
-    return Trainer(args).test()
+        return Trainer(args).test()
+    finally:
+        mesh.teardown()
 
 
 if __name__ == "__main__":

@@ -19,7 +19,8 @@ parameters (--no_mixed_precision for fp32). Snapshots go to
 --resume takes a .pth/.pt or a JAX .npz snapshot, or 'auto' (the newest
 snapshot of this run); --resume_optim an optimizer_G .pth or a JAX .npz.
 Flags the JAX trainer ignores (--loss_perceptual, --loss_adv, ...) are
-accepted and ignored; a --launcher other than none raises. --phase test
+accepted and ignored; `--launcher pytorch` under torchrun trains
+data-parallel, one process per card (see cli/train_diffusion.py). --phase test
 runs the network over --testset (one of the trainsets, in order, no
 augmentation) under no_grad and returns the batches run: the JAX trainer's
 vestigial test; the evaluation proper is the test_denoising CLI.
@@ -29,7 +30,8 @@ from __future__ import annotations
 import argparse
 
 from ..config import add_path_flags
-from .common import add_device_flags, set_random_seed, setup_run_dirs
+from ..parallel import mesh
+from .common import add_device_flags, init_distributed, set_random_seed, setup_run_dirs
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -116,12 +118,16 @@ def main(argv=None):
     batches run."""
     args = build_parser().parse_args(argv)
     set_random_seed(args.random_seed)
-    setup_run_dirs(args)
+    init_distributed(args)
+    try:
+        setup_run_dirs(args)
 
-    from ..train.trainer_denoising import Trainer
+        from ..train.trainer_denoising import Trainer
 
-    trainer = Trainer(args)
-    return trainer.train() if args.phase == "train" else trainer.test()
+        trainer = Trainer(args)
+        return trainer.train() if args.phase == "train" else trainer.test()
+    finally:
+        mesh.teardown()
 
 
 if __name__ == "__main__":

@@ -15,15 +15,24 @@ bf16 compute over fp32 parameters (--no_mixed_precision for fp32).
 Snapshots go to <save_folder>/<name>/snapshot as {net,ema,optimizer_G}_*.pth.
 --resume takes a .pth/.pt or a JAX .npz snapshot, or 'auto' (the newest
 snapshot of this run); --resume_optim an optimizer_G .pth or a JAX .npz.
---remat and a --launcher other than none raise; flags the JAX trainer
-ignores are accepted and ignored.
+--remat recomputes the ResnetBlocks in the backward (less device memory for
+a larger batch or crop); --profile writes a torch.profiler trace of steps
+5-9 under <save_folder>/<name>/profile. Flags the JAX trainer ignores are
+accepted and ignored. Under torchrun (one process per card):
+
+  torchrun --nproc_per_node 2 -m noisediff_tpu_torch.cli.train_diffusion \
+    --launcher pytorch ... --batch_size 8
+
+trains data-parallel over NCCL with a global batch of 8 (4 per card); rank 0
+logs and saves the snapshots.
 """
 from __future__ import annotations
 
 import argparse
 
 from ..config import add_path_flags
-from .common import add_device_flags, set_random_seed, setup_run_dirs
+from ..parallel import mesh
+from .common import add_device_flags, init_distributed, set_random_seed, setup_run_dirs
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sampling_timesteps", default=None, type=int,
                         help="enable DDIM with this many steps (< diffusion_steps)")
     parser.add_argument("--remat", action="store_true",
-                        help="rematerialise ResnetBlocks (not ported yet: raises)")
+                        help="rematerialise ResnetBlocks in the backward (larger crops/batches)")
 
     ## dataloader setting
     parser.add_argument("--data_root", default="./", type=str)
@@ -121,11 +130,15 @@ def main(argv=None):
     """Train; returns the trainer's summary of the run."""
     args = build_parser().parse_args(argv)
     set_random_seed(args.random_seed)
-    setup_run_dirs(args)
+    init_distributed(args)
+    try:
+        setup_run_dirs(args)
 
-    from ..train.trainer_diffusion import Trainer
+        from ..train.trainer_diffusion import Trainer
 
-    return Trainer(args).train()
+        return Trainer(args).train()
+    finally:
+        mesh.teardown()
 
 
 if __name__ == "__main__":

@@ -251,17 +251,23 @@ __global__ void __launch_bounds__(32 * HEAD_WARPS, HeadCfg<C>::MIN_BLOCKS)
   }
 }
 
+// the kernel attribute and the launch shape are set up once per card (the
+// current one: the caller makes the tensors' card current)
+constexpr int MAX_CARDS = 64;
+
 template <int C, bool DDIM>
 int launch(HeadArgs a, cudaStream_t st) {
   using K = HeadCfg<C>;
-  static int blocks_per_sm = 0;
-  static int sms = 0;
+  static int blocks_per_sm_of[MAX_CARDS] = {};
+  static int sms_of[MAX_CARDS] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_CARDS) return (int)cudaErrorInvalidDevice;
+  int& blocks_per_sm = blocks_per_sm_of[dev];
+  int& sms = sms_of[dev];
   if (blocks_per_sm == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(dual_head_kernel<C, DDIM>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);

@@ -509,12 +509,19 @@ ND_EXPORT int nd_groupnorm_silu(const void* x, const void* gamma, const void* be
                                 void* y, void* part, void* bar, int B, long long N, int C, int G,
                                 int film_ld, int film_bf16, int grid, int threads, int spr,
                                 int res_rows, int smem, unsigned epoch, float eps, void* stream) {
-  static int smem_set = 0;
-  if (smem > smem_set) {
+  // the kernel attribute is set per card (the current one: the caller makes
+  // the tensors' card current)
+  constexpr int MAX_CARDS = 64;
+  static int smem_set_of[MAX_CARDS] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_CARDS) {
+    return (int)cudaErrorInvalidDevice;
+  }
+  if (smem > smem_set_of[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         groupnorm_silu_fused, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
+    smem_set_of[dev] = smem;
   }
   if (C % VEC || threads > MAX_THREADS || threads % (C / VEC) || G > 8 || C % G || spr < 1) {
     return (int)cudaErrorInvalidValue;

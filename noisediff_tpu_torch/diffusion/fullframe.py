@@ -7,7 +7,9 @@ fixed square crops and tiles them with an overlapping grid
 height sharded over the device mesh. On one card the whole frame is one
 pass: the condition is the packed clean frame, the frame's rescaled
 coordinate grid and the ISO / ratio index, as in the JAX function.
-Multi-card sharding waits for the distributed slice (ROADMAP.md, Queue 1).
+Sharding the frame over several cards (the JAX spatial mesh axis) is
+model parallelism, not the data parallelism of parallel/mesh.py, and is
+not ported yet (ROADMAP.md, Queue 1 item 2).
 """
 from __future__ import annotations
 

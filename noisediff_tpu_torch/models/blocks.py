@@ -74,6 +74,20 @@ def runs_kernel(kernel: str, dtype: Optional[torch.dtype], channels: int) -> boo
     return dtype == torch.bfloat16 and _WIDTH_OK[kernel](channels)
 
 
+
+def weight_view(w: torch.Tensor, size, stride) -> torch.Tensor:
+    """`w`'s elements seen as `size` with `stride` (a view of its storage).
+    Its gradient comes back in w's own strides, where a select or a view
+    would return it contiguous: a channels-last (O, I, 1, 1) weight has
+    strides (I, 1, I, I), and DDP's gradient buckets, laid out like the
+    parameters, would take a contiguous gradient only through a restride."""
+    return w.as_strided(size, stride)
+
+
+def weight_matrix(w: torch.Tensor) -> torch.Tensor:
+    """The (O, I) matrix of a 1x1 conv weight (O, I, 1, 1) (`weight_view`)."""
+    return weight_view(w, w.shape[:2], w.stride()[:2])
+
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW (channels-last) -> contiguous NHWC; a view when x is channels-last."""
     return x.permute(0, 2, 3, 1).contiguous()
@@ -536,7 +550,7 @@ class AttnBlock(nn.Module):
         tail = fused_attn_tail if self.kernel else reference_attn_tail
         out = tail(
             to_nhwc(x), tok, self.norm2.weight, self.norm2.bias, ff1.weight, ff1.bias,
-            ff2.weight, ff2.bias, self.proj_out.weight[:, :, 0, 0], self.proj_out.bias,
+            ff2.weight, ff2.bias, weight_matrix(self.proj_out.weight), self.proj_out.bias,
             self.norm2.eps,
         )
         return to_nchw(out)
@@ -599,8 +613,9 @@ class Downsample(nn.Sequential):
 
     def forward(self, x):
         conv = self[1]
-        o = conv.weight.shape[0]
-        w = conv.weight.view(o, -1, 2, 2).to(x.dtype)
+        o, c4 = conv.weight.shape[:2]
+        w = weight_view(conv.weight, (o, c4 // 4, 2, 2), (conv.weight.stride(0), 4, 2, 1))
+        w = w.to(x.dtype)
         return F.conv2d(x, w, conv.bias.to(x.dtype), stride=2)
 
 

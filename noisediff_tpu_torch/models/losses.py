@@ -7,7 +7,7 @@ elementwise weight, multiplied in before the reduction) and `reduction`
 ('none' | 'mean' | 'sum') arguments. The denoising trainer uses L1 and
 MSE (trainer_denoising.py:66-79). The GAN losses and penalties, which no
 trainer of the JAX package calls, are not ported yet (ROADMAP.md,
-Queue 1).
+Queue 1 item 4).
 """
 from __future__ import annotations
 

@@ -23,6 +23,14 @@ read one parameter tree.
 
 At dim=48 the model has 21,268,088 parameters under the reference's 416
 state_dict keys.
+
+`remat=True` recomputes every ResnetBlock in the backward instead of
+keeping its activations (`torch.utils.checkpoint`, non-reentrant): the JAX
+model's `nn.remat(ResnetBlock)` (noisediff_net.py:135), over the same
+blocks (shot_time, both blocks of each down and up stage, the mid blocks,
+final_res_block); the positional ResnetBlock2s are kept, as in JAX. It
+trades the blocks' forward compute for device memory in training and
+changes nothing where autograd is off.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import fused_dual_head, reference_dual_head
 from .blocks import (
@@ -44,6 +53,7 @@ from .blocks import (
     Upsample,
     runs_kernel,
     to_nhwc,
+    weight_matrix,
 )
 
 
@@ -62,11 +72,12 @@ class NoiseDiffNet(nn.Module):
     def __init__(self, dim: int = 48, channels: int = 4, dim_mults=(1, 2, 4, 8),
                  resnet_block_groups: int = 8, iso_dim: int = 16, iso_vocab: int = 100,
                  pos_dim: int = 8, attn_heads: int = 4, attn_dim_head: int = 32,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         self.dim = dim
         self.channels = channels
         self.dtype = dtype
+        self.remat = remat
         self.downsample_factor = 2 ** (len(dim_mults) - 1)
         time_dim = dim * 4
         dims = [dim] + [dim * m for m in dim_mults]
@@ -120,6 +131,12 @@ class NoiseDiffNet(nn.Module):
         self.shot_time = resnet(dim, dim, groups=2)
         self.shot_mlp3 = Mlp(dim, dim, channels)
 
+    def _res(self, block: ResnetBlock, x, t: torch.Tensor) -> torch.Tensor:
+        """A ResnetBlock call, recomputed in the backward under remat."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, t, use_reentrant=False)
+        return block(x, t)
+
     def trunk(self, x: torch.Tensor, time: torch.Tensor,
               condition: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor,
                                                             torch.Tensor]:
@@ -148,7 +165,7 @@ class NoiseDiffNet(nn.Module):
         shot_res = shot
         shot = self.shot_attn(shot, context)
         shot = self.shot_mlp2(shot)
-        shot = self.shot_time(shot, t)
+        shot = self._res(self.shot_time, shot, t)
 
         # UNet trunk (read-noise branch)
         h = self.init_conv(xin)
@@ -156,29 +173,29 @@ class NoiseDiffNet(nn.Module):
         h = self.pos_block1(h, pos_emb)
         skips = []
         for block1, block2, attn, down in self.downs:
-            h = block1(h, t)
+            h = self._res(block1, h, t)
             skips.append(h)
-            h = block2(h, t)
+            h = self._res(block2, h, t)
             skips.append(h)
             h = attn(h, context)
             h = down(h)
-        h = self.mid_block1(h, t)
-        h = self.mid_block2(h, t)
+        h = self._res(self.mid_block1, h, t)
+        h = self._res(self.mid_block2, h, t)
         for block1, block2, attn, up in self.ups:
-            h = block1((h, skips.pop()), t)
-            h = block2((h, skips.pop()), t)
+            h = self._res(block1, (h, skips.pop()), t)
+            h = self._res(block2, (h, skips.pop()), t)
             h = attn(h, context)
             h = up(h)
         h = self.pos_block2(h, pos_emb)
-        h = self.final_res_block((h, r), t)
+        h = self._res(self.final_res_block, (h, r), t)
         return to_nhwc(h), to_nhwc(shot), to_nhwc(shot_res)
 
     def head_weights(self) -> Tuple[torch.Tensor, ...]:
         """(w1, b1, w2, b2, wr, br): shot_mlp3's fc1 and fc2 and final_conv
         in PyTorch (out, in) layout, the dual head's parameters."""
         fc1, fc2 = self.shot_mlp3.fc1, self.shot_mlp3.fc2
-        return (fc1.weight[:, :, 0, 0], fc1.bias, fc2.weight[:, :, 0, 0], fc2.bias,
-                self.final_conv.weight[:, :, 0, 0], self.final_conv.bias)
+        return (weight_matrix(fc1.weight), fc1.bias, weight_matrix(fc2.weight), fc2.bias,
+                weight_matrix(self.final_conv.weight), self.final_conv.bias)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 condition: Dict[str, torch.Tensor]) -> torch.Tensor:

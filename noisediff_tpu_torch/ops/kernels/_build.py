@@ -8,6 +8,11 @@ the source and every header under csrc/, so an edited kernel or header is
 rebuilt and an unchanged one is reused. `build_all()` starts one nvcc per
 source at once.
 
+Every call of a C entry point goes through `launch`, which makes the
+tensors' card the current device for the call: the runtime API launches on
+the current device and sets kernel attributes there, whichever card the
+stream passed in belongs to.
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
 """
@@ -120,6 +125,21 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+def launch(device, fn, *args) -> int:
+    """fn(*args), a C entry point, with `device`'s card as the current
+    device (restored after the call); returns its code."""
+    import torch
+
+    prev = torch.cuda.current_device()
+    if prev == device.index:
+        return fn(*args)
+    torch.cuda.set_device(device.index)
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_device(prev)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

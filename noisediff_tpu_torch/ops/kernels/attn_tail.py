@@ -335,7 +335,8 @@ def _check(x, tok, w1, w2, wp, what):
         raise ValueError(f"{what} kernel: parameter shapes do not match x")
 
 
-_FWD_OCCUPANCY: Dict[int, int] = {}  # fused (or streamed) forward blocks per SM, by C
+# fused (or streamed) forward blocks per SM, by (card index, C)
+_FWD_OCCUPANCY: Dict[Tuple[int, int], int] = {}
 
 
 def _launch(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, eps, route=None):
@@ -348,9 +349,9 @@ def _launch(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, eps, route=None):
     route = route or fwd_route(c)
     bps = 1
     if route != "tiled":
-        if c not in _FWD_OCCUPANCY:
-            _FWD_OCCUPANCY[c] = lib.nd_attn_tail_occupancy(c)
-        bps = _FWD_OCCUPANCY[c]
+        if (dev.index, c) not in _FWD_OCCUPANCY:
+            _FWD_OCCUPANCY[dev.index, c] = _build.launch(dev, lib.nd_attn_tail_occupancy, c)
+        bps = _FWD_OCCUPANCY[dev.index, c]
     plan = fwd_plan(b, h * w, c, _build.sm_count(dev), bps, route)
     # held until the launch: a converted operand's memory must not go back
     # to the allocator (and to `out`) before the kernel reads it; the fp32
@@ -361,23 +362,24 @@ def _launch(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, eps, route=None):
     ptrs = [_build.ptr(t) for t in args]
     out = torch.empty_like(x)
     if route == "fused":
-        code = lib.nd_attn_tail_fused(*ptrs, _build.ptr(out), plan["P"], h * w, c, plan["grid"],
-                                      float(eps), _build.stream_ptr(dev))
+        code = _build.launch(dev, lib.nd_attn_tail_fused, *ptrs, _build.ptr(out), plan["P"],
+                             h * w, c, plan["grid"], float(eps), _build.stream_ptr(dev))
     elif route == "streamed":
         wb = torch.empty(plan["scratch"], device=dev, dtype=torch.bfloat16)
-        code = lib.nd_attn_tail_streamed(*ptrs, _build.ptr(out), _build.ptr(wb), plan["P"],
-                                         h * w, c, plan["grid"], float(eps),
-                                         _build.stream_ptr(dev))
+        code = _build.launch(dev, lib.nd_attn_tail_streamed, *ptrs, _build.ptr(out),
+                             _build.ptr(wb), plan["P"], h * w, c, plan["grid"], float(eps),
+                             _build.stream_ptr(dev))
     else:
         ops = torch.empty(plan["scratch"], device=dev, dtype=torch.bfloat16)
-        code = lib.nd_attn_tail_tiled(*ptrs, _build.ptr(out), _build.ptr(ops), plan["P"],
-                                      h * w, c, float(eps), _build.stream_ptr(dev))
+        code = _build.launch(dev, lib.nd_attn_tail_tiled, *ptrs, _build.ptr(out),
+                             _build.ptr(ops), plan["P"], h * w, c, float(eps),
+                             _build.stream_ptr(dev))
     _build.check(lib, code, "attn_tail")
     fused_attn_tail.launches += 1
     return out
 
 
-_OCCUPANCY: Dict[int, int] = {}  # fused-kernel blocks per SM, by C
+_OCCUPANCY: Dict[Tuple[int, int], int] = {}  # fused-kernel blocks per SM, by (card index, C)
 
 
 def _launch_bwd(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, g, eps):
@@ -394,9 +396,9 @@ def _launch_bwd(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, g, eps):
     lib = _build.library("attn_tail_bwd", _BWD_SIGNATURES)
     bps = 1
     if route == "fused":
-        if c not in _OCCUPANCY:
-            _OCCUPANCY[c] = lib.nd_attn_tail_bwd_occupancy(c)
-        bps = _OCCUPANCY[c]
+        if (dev.index, c) not in _OCCUPANCY:
+            _OCCUPANCY[dev.index, c] = _build.launch(dev, lib.nd_attn_tail_bwd_occupancy, c)
+        bps = _OCCUPANCY[dev.index, c]
     plan = bwd_plan(b, h * w, c, _build.sm_count(dev), bps)
     p = plan["P"]
 
@@ -409,8 +411,9 @@ def _launch_bwd(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, g, eps):
     if route == "fused":
         wpart = scratch(plan["grid"] * 5 * c * c)
         vpart = scratch(plan["grid"] * (6 + b) * c)
-        code = lib.nd_attn_tail_bwd_fused(
-            *head, *(_build.ptr(t) for t in (wpart, vpart, wout, vout)),
+        code = _build.launch(
+            dev, lib.nd_attn_tail_bwd_fused, *head,
+            *(_build.ptr(t) for t in (wpart, vpart, wout, vout)),
             b, h * w, c, plan["grid"], float(eps), _build.stream_ptr(dev))
     else:
         ops = scratch(p * 10 * c, bf)
@@ -418,8 +421,9 @@ def _launch_bwd(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, g, eps):
         lpart = scratch(b * plan["ln_splits"] * 5 * c)
         dpart = scratch(plan["row_tiles"] * 2 * c)
         wpart = scratch(plan["splits"] * 5 * c * c)
-        code = lib.nd_attn_tail_bwd_tiled(
-            *head, *(_build.ptr(t) for t in (ops, stats, lpart, dpart, wpart, wout, vout)),
+        code = _build.launch(
+            dev, lib.nd_attn_tail_bwd_tiled, *head,
+            *(_build.ptr(t) for t in (ops, stats, lpart, dpart, wpart, wout, vout)),
             b, h * w, c, plan["ln_splits"], plan["ln_rows"], plan["splits"],
             plan["rows_per_split"], float(eps), _build.stream_ptr(dev))
     _build.check(lib, code, "attn_tail backward")

@@ -126,8 +126,8 @@ def _launch(g, x, kh, kw):
     lib = _build.library("conv_wgrad", _SIGNATURES)
     part = torch.empty(p["part_floats"], device=dev, dtype=torch.float32)
     out = torch.empty((kh, kw, ci, co), device=dev, dtype=torch.float32)
-    code = lib.nd_conv_wgrad(
-        _build.ptr(x), _build.ptr(g), _build.ptr(part), _build.ptr(out),
+    code = _build.launch(
+        dev, lib.nd_conv_wgrad, _build.ptr(x), _build.ptr(g), _build.ptr(part), _build.ptr(out),
         b, h, w, ci, co, kh, kw, p["mt"], p["nt"], p["ctiles"], p["bands"], p["grid"],
         _build.stream_ptr(dev),
     )

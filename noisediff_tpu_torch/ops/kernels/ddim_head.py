@@ -89,8 +89,9 @@ def _launch(x, shot_a, shot_b, xt, noise, w1, b1, w2, b2, wr, br, scal):
     dev = x.device
     out = torch.empty_like(xt)
     lib = _build.library("dual_head", _SIGNATURES)
-    code = lib.nd_ddim_head(
-        x.data_ptr(), shot_a.data_ptr(), shot_b.data_ptr(), *(a.data_ptr() for a in params),
+    code = _build.launch(
+        dev, lib.nd_ddim_head, x.data_ptr(), shot_a.data_ptr(), shot_b.data_ptr(),
+        *(a.data_ptr() for a in params),
         xt.data_ptr(), None if noise is None else noise.data_ptr(), out.data_ptr(),
         p, x.shape[-1], *_scalars(scal), torch.cuda.current_stream(dev).cuda_stream,
     )

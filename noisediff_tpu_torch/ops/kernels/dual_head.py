@@ -78,8 +78,9 @@ def _launch(x, shot_a, shot_b, w1, b1, w2, b2, wr, br):
     dev = x.device
     out = torch.empty(x.shape[:3] + (4,), device=dev, dtype=torch.float32)
     lib = _build.library("dual_head", _SIGNATURES)
-    code = lib.nd_dual_head(
-        x.data_ptr(), shot_a.data_ptr(), shot_b.data_ptr(), *(a.data_ptr() for a in params),
+    code = _build.launch(
+        dev, lib.nd_dual_head, x.data_ptr(), shot_a.data_ptr(), shot_b.data_ptr(),
+        *(a.data_ptr() for a in params),
         out.data_ptr(), p, x.shape[-1], torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "dual_head")

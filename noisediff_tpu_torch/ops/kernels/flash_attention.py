@@ -66,8 +66,9 @@ def _launch(q, k, v, scale: float):
     dev = q.device
     out = torch.empty_like(q)
     lib = _build.library("flash_attention", _SIGNATURES)
-    code = lib.nd_flash_attention(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-                                  b * h, nq, nk, d, float(scale), _build.stream_ptr(dev))
+    code = _build.launch(dev, lib.nd_flash_attention, _build.ptr(q), _build.ptr(k),
+                         _build.ptr(v), _build.ptr(out), b * h, nq, nk, d, float(scale),
+                         _build.stream_ptr(dev))
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -132,8 +132,9 @@ def _launch(fn_name: str, tensors, what: str) -> Pair:
     if s is None or s.part.numel() < p["part"] or s.count.numel() < p["counters"]:
         s = _SCRATCH[key] = _Scratch(dev, max(p["part"], 1 << 16), max(p["counters"], 64))
     out = torch.empty((2, b, c), device=dev, dtype=torch.float32)
-    code = fn(*(t.data_ptr() for t in tensors), s.part.data_ptr(), s.count.data_ptr(),
-              out.data_ptr(), b, n, c, p["splits"], p["rows"], p["threads"], p["smem"], stream)
+    code = _build.launch(dev, fn, *(t.data_ptr() for t in tensors), s.part.data_ptr(),
+                         s.count.data_ptr(), out.data_ptr(), b, n, c, p["splits"], p["rows"],
+                         p["threads"], p["smem"], stream)
     _build.check(lib, code, what)
     return out.unbind(0)
 

@@ -132,7 +132,7 @@ def _kernel(dev):
     k = _KERNEL.get(dev.index)
     if k is None:
         lib = _build.library("groupnorm_silu", _SIGNATURES)
-        limit = lib.nd_groupnorm_silu_smem_limit()
+        limit = _build.launch(dev, lib.nd_groupnorm_silu_smem_limit)
         if limit <= 0:
             raise RuntimeError("groupnorm_silu: could not read the card's shared-memory limit")
         k = _KERNEL[dev.index] = (lib.nd_groupnorm_silu, lib, _build.sm_count(dev), limit)
@@ -187,8 +187,8 @@ def _launch(x, gamma, beta, film_scale, film_shift, groups, eps, conv_bias):
         s = _SCRATCH[key] = _Scratch(dev, max(b * p["grid"] * 16, 1 << 14), max(b, 64))
     s.epoch += 1
     y = torch.empty_like(x)
-    code = fn(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+    code = _build.launch(
+        dev, fn, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if fs is None else fs.data_ptr(), None if fsh is None else fsh.data_ptr(),
         y.data_ptr(), s.part.data_ptr(), s.bar.data_ptr(),

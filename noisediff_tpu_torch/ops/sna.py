@@ -5,14 +5,21 @@ get_aug_param_torch :115-138 and SNA_torch :140-166, applied at :207-217).
 Like the JAX package, the whole augmentation is batched tensor work: per
 batch one r in {0.25, 0.5} and one 3-in-4 gate, per sample clamped
 Gaussian white-balance gains and a Kmax from the SonyA7S2 table jittered by
-+-1%, one Poisson draw over the (B, H, W, 4) batch. Every draw comes from
++-1%, and a Poisson draw over each (H, W, 4) sample. Every draw comes from
 an explicit torch.Generator on the tensors' device, so nothing waits for
 the host. `torch.poisson` cannot match `jax.random.poisson` draw for draw;
 everything around the draw is the JAX package's arithmetic.
+
+Each sample's Poisson draw comes from a generator of its own, seeded from
+the step generator's seed and the sample's index in the step's batch
+(`first` + its row): the draws of a sample do not depend on how the batch
+was split, so the ranks of a multi-process step, each handed its rows,
+draw together what one process draws for the whole batch, on the CPU
+(whose Poisson draws consume the generator serially) as on the card.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,23 +89,53 @@ def sample_aug_wb(generator: torch.Generator, batch: int) -> torch.Tensor:
 
 def draw_jitter(generator: torch.Generator, batch: int) -> torch.Tensor:
     """The per-sample Kmax jitter, uniform in [-0.01, 0.01): the first draw
-    `apply_sna` makes from its generator."""
+    `apply_sna` makes from its generator when it is given none."""
     u = torch.rand((batch,), generator=generator, device=generator.device)
     return u * 0.02 - 0.01
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def sample_seed(seed: int, index: int) -> int:
+    """The seed of sample `index`'s Poisson generator under a step
+    generator seeded with `seed`: splitmix64's finaliser of the pair, kept
+    to 63 bits."""
+    z = (int(seed) + 0x9E3779B97F4A7C15 * (int(index) + 1)) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def draw_poisson(seed: int, lam: torch.Tensor, first: int = 0) -> torch.Tensor:
+    """Poisson draws of mean lam (B, ...), row i from a generator seeded
+    with sample_seed(seed, first + i): one draw a sample, then one stack."""
+    g = torch.Generator(device=lam.device)
+    rows = []
+    for i in range(lam.shape[0]):
+        g.manual_seed(sample_seed(seed, first + i))
+        rows.append(torch.poisson(lam[i], generator=g))
+    return torch.stack(rows)
+
+
 def apply_sna(generator: torch.Generator, noisy: torch.Tensor, clean: torch.Tensor,
               iso: torch.Tensor, ratio: torch.Tensor,
-              aug_wb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              aug_wb: torch.Tensor, jitter: Optional[torch.Tensor] = None,
+              first: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched SNA_torch (:140-166, applied at :207-217).
 
     noisy / clean: (B, H, W, 4) in [0, 1] (the ratio-amplified domain);
     iso / ratio: (B,); aug_wb: (B, 4). The clean image gains
     dy = clean * wb; the noisy one a Poisson draw of mean dy in units of
     K * ratio / (WP - BL). Samples whose gains are all zero pass through
-    unchanged (the reference skips them)."""
+    unchanged (the reference skips them). The Kmax jitter (B,) is drawn
+    from `generator` unless given; the Poisson draws come from the
+    generator's seed, the batch's rows being samples first, first + 1, ...
+    of the step's batch (draw_poisson)."""
     b = clean.shape[0]
-    K = kmax_for_iso(iso, draw_jitter(generator, b))
+    if jitter is None:
+        jitter = draw_jitter(generator, b)
+    K = kmax_for_iso(iso, jitter)
 
     ratio = ratio.float().reshape(b, 1, 1, 1)
     Kb = K.reshape(b, 1, 1, 1)
@@ -107,7 +144,7 @@ def apply_sna(generator: torch.Generator, noisy: torch.Tensor, clean: torch.Tens
     gt_dn = clean.float() * (WP - BL) / ratio
     dy = gt_dn * wb
     lam = torch.clamp(dy / Kb, min=0.0)
-    dn = torch.poisson(lam, generator=generator) * Kb
+    dn = draw_poisson(generator.initial_seed(), lam, first) * Kb
     dy = dy * ratio / (WP - BL)
     dn = dn / (WP - BL) * ratio  # ori=False branch (:163-164)
 

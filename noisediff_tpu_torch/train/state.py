@@ -7,15 +7,26 @@ betas (0.9, 0.999) and eps 1e-8. torch.optim.Adam's weight_decay adds
 wd * param to the gradient before the moment updates, which is exactly the
 JAX chain add_decayed_weights -> scale_by_adam. The learning rate is set
 per epoch on the param groups by the host loop.
+
+Multi-process training: the steps run on the DDP-wrapped model
+(parallel.wrap), whose backward all-reduces the gradients (their mean over
+the ranks). Each rank holds its rows of the global batch (`shard`), and
+the steps make every random draw for the global batch, from a generator
+seeded alike on every rank, and keep this rank's rows, as the JAX step
+draws with one key for the whole batch: a step on `world` ranks is the
+one-process step on the concatenated batch. The logged losses are their
+means over the ranks, as the JAX step's loss is the global batch's;
+`grad_norm` is read after the all-reduce, so it is the same on every rank.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..diffusion.gaussian import GaussianDiffusion
 from ..ops import sna
+from ..parallel.mesh import SINGLE, Shard, all_reduce_mean
 
 # --generation_result -> the batch key the diffusion learns to generate
 TARGET_KEYS = {"noise": "noise", "image": "noisy_img"}
@@ -38,29 +49,44 @@ def grad_norm(params) -> torch.Tensor:
 
 
 def make_diffusion_train_step(diffusion: GaussianDiffusion, optimizer: torch.optim.Optimizer,
-                              generation_result: str = "noise") -> Callable:
-    """Returns step(batch, generator) -> {'diffusion_loss', 'grad_norm'}
-    (device scalars): the loss on batch[target] with the condition
-    (clean_img, coord, iso_ratio_idx), timesteps and noise drawn from
-    `generator`, its gradients, one Adam step."""
+                              generation_result: str = "noise",
+                              shard: Shard = SINGLE) -> Callable:
+    """Returns step(batch, generator, draws=None) -> {'diffusion_loss',
+    'grad_norm'} (device scalars): the loss on batch[target] with the
+    condition (clean_img, coord, iso_ratio_idx), its gradients, one Adam
+    step. The timesteps and the noise are drawn for the global batch from
+    `generator`, t first, or given as `draws`, the global batch's (t,
+    noise) (a caller holding another framework's draws); this rank keeps
+    its rows. `diffusion`'s model is the DDP-wrapped one where `shard` has
+    more than one rank."""
     if generation_result not in TARGET_KEYS:
         raise ValueError(f"--generation_result must be one of {sorted(TARGET_KEYS)}")
     target_key = TARGET_KEYS[generation_result]
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
-    def step(batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+    def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+             draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> Dict[str, torch.Tensor]:
+        img = batch[target_key]
+        if draws is None:
+            n = shard.world * img.shape[0]
+            t = torch.randint(0, diffusion.num_timesteps, (n,), generator=generator,
+                              device=img.device)
+            noise = torch.randn((n,) + tuple(img.shape[1:]), generator=generator,
+                                device=img.device)
+        else:
+            t, noise = (d.to(img.device) for d in draws)
         condition = {
             "clean_img": batch["clean_img"],
             "iso_ratio_idx": batch["iso_ratio_idx"],
             "position": batch["coord"],
         }
         optimizer.zero_grad(set_to_none=True)
-        loss = diffusion.loss(batch[target_key], condition, generator=generator)
+        loss = diffusion.loss(img, condition, t=shard.rows(t), noise=shard.rows(noise))
         loss.backward()
         norm = grad_norm(params)
         optimizer.step()
-        return {"diffusion_loss": loss.detach(), "grad_norm": norm}
+        return {"diffusion_loss": all_reduce_mean(loss.detach(), shard), "grad_norm": norm}
 
     return step
 
@@ -68,7 +94,8 @@ def make_diffusion_train_step(diffusion: GaussianDiffusion, optimizer: torch.opt
 def make_denoising_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                               loss_l1: bool = True, loss_mse: bool = False,
                               lambda_l1: float = 1.0, lambda_mse: float = 1.0,
-                              use_sna: bool = False, augment_flip: bool = True) -> Callable:
+                              use_sna: bool = False, augment_flip: bool = True,
+                              shard: Shard = SINGLE) -> Callable:
     """Returns step(batch, generator) -> {'mse_loss' and / or 'l1_loss',
     'loss_sum', 'grad_norm'} (device scalars) for the denoiser: batch
     'noisy_img' and 'clean_img' (B, H, W, 4), 'iso' and 'ratio' (B,).
@@ -80,7 +107,11 @@ def make_denoising_train_step(model: torch.nn.Module, optimizer: torch.optim.Opt
     model's output in fp32 against the clean image: the mean L1 times
     lambda_l1 and / or the mean squared error times lambda_mse (:225-235),
     their gradients and one Adam step. With neither loss on, the loss is 0
-    and so is every gradient, as in the JAX step."""
+    and so is every gradient, as in the JAX step. `model` is the
+    DDP-wrapped one where `shard` has more than one rank; the batch is this
+    rank's rows: the flip is one draw for the whole global batch, the
+    gains and Kmax jitter are drawn for it and sliced, and the Poisson
+    draws follow each sample's index in it."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(batch: Dict[str, torch.Tensor],
@@ -91,9 +122,11 @@ def make_denoising_train_step(model: torch.nn.Module, optimizer: torch.optim.Opt
             noisy = torch.where(flip, noisy.flip(1), noisy)
             clean = torch.where(flip, clean.flip(1), clean)
         if use_sna:
-            aug_wb = sna.sample_aug_wb(generator, clean.shape[0])
+            b = clean.shape[0]
+            aug_wb = shard.rows(sna.sample_aug_wb(generator, shard.world * b))
+            jitter = shard.rows(sna.draw_jitter(generator, shard.world * b))
             noisy, clean = sna.apply_sna(generator, noisy, clean, batch["iso"], batch["ratio"],
-                                         aug_wb)
+                                         aug_wb, jitter, first=shard.rank * b)
         optimizer.zero_grad(set_to_none=True)
         out = model(noisy).float()
         metrics = {}
@@ -104,8 +137,11 @@ def make_denoising_train_step(model: torch.nn.Module, optimizer: torch.optim.Opt
         terms = list(metrics.values())
         loss = sum(terms[1:], terms[0]) if terms else 0.0 * out.sum()
         loss.backward()
+        metrics["loss_sum"] = loss
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss_sum"] = loss.detach()
+        if shard.world > 1:  # one all-reduce for every logged loss
+            means = all_reduce_mean(torch.stack(list(metrics.values())), shard)
+            metrics = dict(zip(metrics, means.unbind()))
         metrics["grad_norm"] = grad_norm(params)
         optimizer.step()
         return metrics

@@ -21,11 +21,17 @@ reference's .pth format (train/checkpoint.py). Each step draws its flip
 and augmentation from a torch.Generator seeded from (random_seed, global
 step), and the optimizer snapshot carries the step, so --resume auto
 continues the augmentation stream of the uninterrupted run.
+
+Multi-process runs (`cli.common.init_distributed`; the JAX trainer's
+:49-115): LSID under DDP, each rank's ShardedIterSampler shard at
+batch_size / world per step with its rows of the global batch's
+augmentation draws, rank 0 alone logging, writing the scalar log, the
+visualisations and the snapshots (of the unwrapped module). --phase test
+runs the whole test loader on every rank, as the JAX trainer does.
 """
 from __future__ import annotations
 
 import itertools
-import logging
 import os
 import time
 from typing import Dict, List
@@ -36,14 +42,16 @@ import torch
 from ..cli.common import resolve_device, set_precision_flags
 from ..config import paths_from_args
 from ..data.datasets import DATASETS
-from ..data.loader import TrainLoader, generation_loader
+from ..data.loader import create_train_loader, generation_loader
 from ..models import define_network
+from ..parallel import mesh
 from ..utils.logging import ScalarLogger
 from ..weights import adam_state_from_jax, load_into, load_jax_opt_npz
 from . import checkpoint as ckpt
 from .schedules import denoising_staircase_lr
 from .state import make_denoising_train_step, make_optimizer, set_learning_rate
-from .trainer_diffusion import _cpu_state, _DeviceClock, step_seed, upload_batch
+from .trainer_diffusion import (
+    _cpu_state, _DeviceClock, rank_logger, run_shard, step_seed, upload_batch)
 
 # the tensors a denoising step reads
 BATCH_KEYS = ("noisy_img", "clean_img", "iso", "ratio")
@@ -54,12 +62,10 @@ _DARKSHADING_SETS = ("SyntheticNoisDiffDenoisingDataset", "RealSonyDenoisingData
 
 class Trainer:
     def __init__(self, args):
-        if getattr(args, "launcher", "none") != "none":
-            raise NotImplementedError(
-                "multi-process training is not ported yet (ROADMAP.md, Queue 1 item 3); "
-                "use --launcher none")
         self.args = args
         self.device = resolve_device(getattr(args, "device", "cuda"))
+        self.shard = run_shard(args)
+        info = self._info = rank_logger(self.shard)
         set_precision_flags()
         self.paths = paths_from_args(args)
         self.seed = getattr(args, "random_seed", 0)
@@ -72,8 +78,9 @@ class Trainer:
                 kwargs["sub_darkshading"] = getattr(args, "sub_darkshading", False)
             self.train_dataset = DATASETS[args.trainset](self.paths, args.crop_size,
                                                          seed=self.seed, **kwargs)
-            self.train_dataloader = TrainLoader(self.train_dataset, args.batch_size,
-                                                getattr(args, "num_workers", 2), seed=self.seed)
+            self.train_dataloader = create_train_loader(
+                self.train_dataset, args.batch_size, getattr(args, "num_workers", 2),
+                seed=self.seed, world_size=self.shard.world, rank=self.shard.rank)
         else:  # --testset in order, unshuffled, the last batch short (trainer_denoising.py:74-80)
             if args.testset not in DATASETS:
                 raise ValueError(f"--testset {args.testset!r} is not one of {sorted(DATASETS)}")
@@ -93,31 +100,33 @@ class Trainer:
                 load_into(model, ckpt.component_path(args.snapshot_save_dir, "net", auto_tag))
                 if auto_tag.isdigit() and args.phase == "train":
                     args.start_iter = max(args.start_iter, int(auto_tag) + 1)
-                logging.info("auto-resumed from net_%s", auto_tag)
+                info("auto-resumed from net_%s", auto_tag)
             else:
-                logging.info("auto-resume: no snapshot found, starting fresh")
+                info("auto-resume: no snapshot found, starting fresh")
         elif args.resume and args.resume != ".":
             load_into(model, args.resume)  # .pth/.pt or a JAX .npz snapshot, strict
         self.model = model.to(self.device, memory_format=torch.channels_last)
-        logging.info("----- generator parameters: %f -----",
-                     sum(p.numel() for p in self.model.parameters()) / 1e6)
+        info("----- generator parameters: %f -----",
+             sum(p.numel() for p in self.model.parameters()) / 1e6)
         if args.phase != "train":
             self.model.eval().requires_grad_(False)
             return
         self.model.train()
+        # the model the step calls: DDP over self.model in a multi-process run
+        self.net = mesh.wrap(self.model, self.device)
 
         if getattr(args, "loss_mse", False):
-            logging.info("  using mse loss...")
+            info("  using mse loss...")
         if getattr(args, "loss_l1", False):
-            logging.info("  using l1 loss...")
+            info("  using l1 loss...")
         self.optimizer = make_optimizer(self.model.parameters(), lr=args.lr,
                                         weight_decay=getattr(args, "weight_decay", 0.0))
         self.step = 0
         self.train_step = make_denoising_train_step(
-            self.model, self.optimizer,
+            self.net, self.optimizer,
             loss_l1=getattr(args, "loss_l1", False), loss_mse=getattr(args, "loss_mse", False),
             lambda_l1=getattr(args, "lambda_l1", 1.0), lambda_mse=getattr(args, "lambda_mse", 1.0),
-            use_sna=getattr(args, "use_sna", False))
+            use_sna=getattr(args, "use_sna", False), shard=self.shard)
         if auto_tag is not None:
             opt_path = ckpt.component_path(args.snapshot_save_dir, "optimizer_G", auto_tag)
             if os.path.exists(opt_path):
@@ -162,16 +171,17 @@ class Trainer:
         {'steps', 'losses', 'snapshots', 'step_seconds', 'step_end_seconds',
         'epoch_seconds', 'loader_wait_seconds'}, with the same meanings as
         the diffusion trainer's (`trainer_diffusion.Trainer.train`); 'losses'
-        holds each step's loss_sum. Nothing waits for the device inside an
+        holds each step's loss_sum (the mean over the ranks). Nothing waits for the device inside an
         epoch except the loss reads every --log_freq steps (and the
         --use_tb_logger scalars every --vis_step_freq)."""
         args = self.args
         dev = self.device
-        logging.info("training on %s", args.trainset)
-        logging.info("%d training samples", len(self.train_dataset))
-        logging.info("the init lr: %f", args.lr)
+        info, rank0 = self._info, self.shard.rank == 0
+        info("training on %s", args.trainset)
+        info("%d training samples", len(self.train_dataset))
+        info("the init lr: %f", args.lr)
         tb = None
-        if getattr(args, "use_tb_logger", False):
+        if getattr(args, "use_tb_logger", False) and rank0:
             tb = ScalarLogger(args.save_folder.replace("weights", "tb_logger"))
         generator = torch.Generator(device=dev)
         clock = _DeviceClock(dev)
@@ -186,7 +196,7 @@ class Trainer:
         for epoch in range(args.start_iter, args.max_iter):
             lr = denoising_staircase_lr(args.lr, args.max_iter, epoch)
             set_learning_rate(self.optimizer, lr)
-            logging.info("current_lr: %f", lr)
+            info("current_lr: %f", lr)
             self.train_dataloader.set_epoch(epoch)
             t_epoch = t_log = time.perf_counter()
             waited = 0.0
@@ -220,7 +230,7 @@ class Trainer:
                     parts += [f"{k}:{float(metrics[k]):.06f} " for k in LOSS_KEYS if k in metrics]
                     parts.append(f"loss_sum:{losses[-1]:f} ")
                     parts.append(f"{(now - t_log) / (args.log_freq if j else 1):4.6f}s/batch")
-                    logging.info("".join(parts))
+                    info("".join(parts))
                     t_log = now
             if unread:
                 losses += torch.stack(unread).tolist()
@@ -231,15 +241,18 @@ class Trainer:
             step_seconds += [clock.seconds(s, e) for s, e in marks]
             if marks:
                 step_end_seconds += [clock.seconds(marks[0][0], e) for _, e in marks]
-            if epoch % getattr(args, "vis_freq", 100) == 0:
+            if epoch % getattr(args, "vis_freq", 100) == 0 and rank0:
                 self._vis(epoch, last_batch)
-            if epoch % args.save_epoch_freq == 0:
-                logging.info("Saving state, epoch: %d iter:0", epoch)
+            if epoch % args.save_epoch_freq == 0 and rank0:
+                info("Saving state, epoch: %d iter:0", epoch)
                 snapshots += [self.save_networks(n, epoch) for n in ("net", "optimizer_G")]
-        snapshots.append(self.save_networks("net", "final"))
+        if rank0:
+            snapshots.append(self.save_networks("net", "final"))
+        if self.shard.world > 1:  # every rank returns once rank 0's snapshots are written
+            mesh.barrier()
         if tb is not None:
             tb.close()
-        logging.info("The training stage is over!!!")
+        info("The training stage is over!!!")
         return {"steps": steps, "losses": losses, "snapshots": snapshots,
                 "step_seconds": step_seconds, "step_end_seconds": step_end_seconds,
                 "epoch_seconds": epoch_seconds, "loader_wait_seconds": loader_wait_seconds}

@@ -22,6 +22,18 @@ thread with tmp + os.replace writes. Each batch draws its noise from its
 own torch.Generator seeded from (random_seed, batch index), so
 --skip_existing can resume a run and a regenerated batch equals the one an
 uninterrupted run wrote.
+
+Multi-process runs (`cli.common.init_distributed`, the JAX trainer's
+:66-108, :127-145): training wraps the model in DDP (parallel.wrap), each
+rank loads its ShardedIterSampler shard at batch_size / world per step and
+draws its rows of the global batch's timesteps and noise; rank 0 alone
+logs, writes the scalar log and saves snapshots, of the unwrapped module
+(the reference's keys, no `module.` prefix). Generation walks each rank's
+StridedShardSampler shard, batch index and generator seed rank-local as in
+JAX, and writes a disjoint set of patches. --remat recomputes the
+ResnetBlocks in the backward (models/noisediff_net.py); --profile writes a
+torch.profiler trace of steps 5-9 of the first epoch under
+<save_folder>/profile, as the JAX trainer does with jax.profiler.
 """
 from __future__ import annotations
 
@@ -39,11 +51,13 @@ import torch
 from ..cli.common import resolve_device, set_precision_flags
 from ..config import paths_from_args
 from ..data.datasets import DATASETS
-from ..data.loader import TrainLoader, generation_loader
+from ..data.loader import create_train_loader, generation_loader
 from ..data.manifest import npy_patch_name
+from ..data.sampler import StridedShardSampler
 from ..diffusion.gaussian import GaussianDiffusion, default_dpm_steps
-from ..models import define_network
+from ..models import define_network, is_unread_parameter
 from ..ops.schedules import make_schedule
+from ..parallel import mesh
 from ..utils.logging import ScalarLogger
 from ..weights import adam_state_from_jax, load_into, load_jax_opt_npz
 from . import checkpoint as ckpt
@@ -55,6 +69,9 @@ from .state import TARGET_KEYS, make_diffusion_train_step, make_optimizer, set_l
 # key and 1 into its training key)
 _SAMPLE_STREAM = 999
 _TRAIN_STREAM = 1
+# --profile traces steps PROFILE_FIRST .. PROFILE_FIRST + PROFILE_STEPS - 1 of
+# the first epoch (the JAX trainer's 5-9)
+PROFILE_FIRST, PROFILE_STEPS = 5, 5
 # condition tensors of a training batch; the step also takes its target
 _CONDITION_KEYS = ("clean_img", "coord", "iso_ratio_idx")
 
@@ -78,6 +95,54 @@ def step_seed(random_seed: int, step: int) -> int:
 
 def _cpu_state(sd):
     return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def run_shard(args) -> mesh.Shard:
+    """The run's Shard from init_distributed's args (one process without)."""
+    if getattr(args, "dist", False):
+        return mesh.Shard(args.rank, args.world_size)
+    return mesh.SINGLE
+
+
+def rank_logger(shard: mesh.Shard):
+    """logging.info on rank 0 (or the one process); a no-op elsewhere."""
+    return logging.info if shard.rank == 0 else (lambda *a, **k: None)
+
+
+class StepProfiler:
+    """--profile: a torch.profiler trace of the first epoch's steps
+    PROFILE_FIRST .. PROFILE_FIRST + PROFILE_STEPS - 1, written as a Chrome
+    trace to <save_folder>/profile/steps_5-9.rank<r>.pt.trace.json. `step(j)`
+    is called before step j of the first epoch, `close()` after it (a
+    shorter epoch ends the trace early)."""
+
+    def __init__(self, folder: str, device: torch.device, rank: int):
+        self.path = os.path.join(
+            folder, "profile",
+            f"steps_{PROFILE_FIRST}-{PROFILE_FIRST + PROFILE_STEPS - 1}.rank{rank}.pt.trace.json")
+        self.device = device
+        self.prof = None
+
+    def step(self, j: int) -> None:
+        if j == PROFILE_FIRST:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+                torch.cuda.synchronize(self.device)
+            self.prof = torch.profiler.profile(activities=acts, acc_events=True)
+            self.prof.start()
+        elif j == PROFILE_FIRST + PROFILE_STEPS:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
 
 
 def upload_batch(batch, keys, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -117,14 +182,10 @@ class Trainer:
     def __init__(self, args):
         if args.phase not in ("train", "test"):
             raise ValueError(f"--phase must be train or test, got {args.phase!r}")
-        if getattr(args, "launcher", "none") != "none":
-            raise NotImplementedError(
-                "multi-process training and generation are not ported yet (ROADMAP.md, "
-                "Queue 1 item 3); use --launcher none")
-        if args.phase == "train" and getattr(args, "remat", False):
-            raise NotImplementedError("--remat is not ported yet (ROADMAP.md, Queue 1)")
         self.args = args
         self.device = resolve_device(getattr(args, "device", "cuda"))
+        self.shard = run_shard(args)
+        info = self._info = rank_logger(self.shard)
         set_precision_flags()
         self.paths = paths_from_args(args)
         seed = getattr(args, "random_seed", 0)
@@ -134,16 +195,21 @@ class Trainer:
 
         if args.phase == "train":
             self.train_dataset = DATASETS[args.trainset](self.paths, args.crop_size, seed=seed)
-            self.train_dataloader = TrainLoader(
-                self.train_dataset, args.batch_size, getattr(args, "num_workers", 2), seed=seed)
+            self.train_dataloader = create_train_loader(
+                self.train_dataset, args.batch_size, getattr(args, "num_workers", 2), seed=seed,
+                world_size=self.shard.world, rank=self.shard.rank)
         else:
             ds_cls = DATASETS[args.testset]
             kwargs = {}
             if args.testset == "NoiseImageGenerationDataset":
                 kwargs = dict(iso_value=args.iso_value, ratio_value=args.ratio_value)
             self.test_dataset = ds_cls(self.paths, args.crop_size, seed=seed, **kwargs)
+            sampler = None
+            if self.shard.world > 1:  # each rank writes a disjoint strided shard of the grid
+                sampler = StridedShardSampler(len(self.test_dataset), self.shard.world,
+                                              self.shard.rank)
             self.test_dataloader = generation_loader(
-                self.test_dataset, args.batch_size, getattr(args, "num_workers", 0))
+                self.test_dataset, args.batch_size, getattr(args, "num_workers", 0), sampler)
 
         # initial weights from the run seed, without touching the global RNG
         with torch.random.fork_rng(devices=[]):
@@ -158,17 +224,21 @@ class Trainer:
                                                      self._auto_tag))
                 if self._auto_tag.isdigit():
                     args.start_iter = max(args.start_iter, int(self._auto_tag) + 1)
-                logging.info("auto-resumed from net_%s", self._auto_tag)
+                info("auto-resumed from net_%s", self._auto_tag)
             else:
-                logging.info("auto-resume: no snapshot found, starting fresh")
+                info("auto-resume: no snapshot found, starting fresh")
         elif args.resume and args.resume != ".":
             # "." is the reference CLI's default (test_diffusion.py:73): no checkpoint
             load_into(model, args.resume)  # .pth/.pt or a JAX .npz snapshot, strict
         self.model = model.to(self.device, memory_format=torch.channels_last)
-        logging.info("generator parameters: %f",
-                     sum(p.numel() for p in self.model.parameters()) / 1e6)
+        info("generator parameters: %f", sum(p.numel() for p in self.model.parameters()) / 1e6)
+        # the model the training step calls: DDP over self.model in a
+        # multi-process run (snapshots and the EMA read self.model itself)
+        self.net = self.model
+        if args.phase == "train":
+            self.net = mesh.wrap(self.model, self.device, is_unread_parameter)
         self.diffusion = GaussianDiffusion(
-            self.model,
+            self.net,
             make_schedule(args.beta_schedule, args.diffusion_steps),
             image_size=args.crop_size,
             objective=args.diffusion_objective,
@@ -191,7 +261,8 @@ class Trainer:
         self.ema = HostEma(self.model.named_parameters())
         self.step = 0
         self.train_step = make_diffusion_train_step(
-            self.diffusion, self.optimizer, getattr(args, "generation_result", "noise"))
+            self.diffusion, self.optimizer, getattr(args, "generation_result", "noise"),
+            shard=self.shard)
         if self._auto_tag is not None:
             snap, tag = args.snapshot_save_dir, self._auto_tag
             ema_path = ckpt.component_path(snap, "ema", tag)
@@ -200,8 +271,8 @@ class Trainer:
             opt_path = ckpt.component_path(snap, "optimizer_G", tag)
             if os.path.exists(opt_path):
                 self._load_optimizer(opt_path)
-                logging.info("auto-resumed ema/optimizer state from %s (step %d)", opt_path,
-                             self.step)
+                self._info("auto-resumed ema/optimizer state from %s (step %d)", opt_path,
+                           self.step)
         if getattr(args, "resume_optim", ""):
             self._load_optimizer(args.resume_optim)
 
@@ -238,7 +309,8 @@ class Trainer:
     def train(self) -> Dict[str, object]:
         """Run epochs start_iter .. max_iter - 1 and return what was done:
         {'steps', 'losses', 'snapshots', 'step_seconds', 'step_end_seconds',
-        'epoch_seconds', 'loader_wait_seconds'}.
+        'epoch_seconds', 'loader_wait_seconds'}; losses are the global
+        batch's (their mean over the ranks), snapshots rank 0's.
 
         Nothing waits for the device inside an epoch, except the loss reads
         every --log_freq steps (as in the reference). The times are on the
@@ -251,16 +323,17 @@ class Trainer:
         the loader."""
         args = self.args
         dev = self.device
-        logging.info("training on %s", args.trainset)
-        logging.info("%d training samples", len(self.train_dataset))
-        logging.info("the init lr: %f", args.lr)
-        # the JAX trainer's scalar log (trainer_diffusion.py:319-321, :368-372);
-        # the port runs one process, rank 0
+        info, rank0 = self._info, self.shard.rank == 0
+        info("training on %s", args.trainset)
+        info("%d training samples", len(self.train_dataset))
+        info("the init lr: %f", args.lr)
+        # the JAX trainer's scalar log (trainer_diffusion.py:319-321, :368-372), rank 0's
         tb = None
-        if getattr(args, "use_tb_logger", False):
+        if getattr(args, "use_tb_logger", False) and rank0:
             tb = ScalarLogger(args.save_folder.replace("weights", "tb_logger"))
+        profiler = None
         if getattr(args, "profile", False):
-            logging.warning("--profile: step traces are not ported yet (ROADMAP.md)")
+            profiler = StepProfiler(args.save_folder, dev, self.shard.rank)
         params = list(self.model.parameters())
         generator = torch.Generator(device=dev)
         clock = _DeviceClock(dev)
@@ -276,7 +349,7 @@ class Trainer:
         for epoch in range(args.start_iter, args.max_iter):
             lr = cosine_epoch_lr(args.lr, args.max_iter, epoch)
             set_learning_rate(self.optimizer, lr)
-            logging.info("current_lr: %f", lr)
+            info("current_lr: %f", lr)
             self.train_dataloader.set_epoch(epoch)
             t_epoch = t_log = time.perf_counter()
             waited = 0.0
@@ -289,6 +362,8 @@ class Trainer:
                 waited += time.perf_counter() - t_wait
                 if batch is None:
                     break
+                if profiler is not None and epoch == args.start_iter:
+                    profiler.step(j)
                 start = clock.mark()
                 device_batch = upload_batch(batch, keys, dev)
                 generator.manual_seed(step_seed(self.seed, self.step))
@@ -305,10 +380,12 @@ class Trainer:
                     losses += torch.stack(unread).tolist()  # waits for this step
                     unread = []
                     now = time.perf_counter()
-                    logging.info("epoch:%03d step:%04d  diffusion_loss:%.06f loss_sum:%f "
-                                 "%4.6fs/batch", epoch, j, losses[-1], losses[-1],
-                                 (now - t_log) / (args.log_freq if j else 1))
+                    info("epoch:%03d step:%04d  diffusion_loss:%.06f loss_sum:%f %4.6fs/batch",
+                         epoch, j, losses[-1], losses[-1],
+                         (now - t_log) / (args.log_freq if j else 1))
                     t_log = now
+            if profiler is not None:
+                profiler.close()
             if unread:
                 losses += torch.stack(unread).tolist()
             if dev.type == "cuda":
@@ -317,13 +394,16 @@ class Trainer:
             loader_wait_seconds.append(waited)
             step_seconds += [clock.seconds(s, e) for s, e in marks]
             step_end_seconds += [clock.seconds(marks[0][0], e) for _, e in marks]
-            if epoch % args.save_epoch_freq == 0:
-                logging.info("Saving state, epoch: %d iter:0", epoch)
+            if epoch % args.save_epoch_freq == 0 and rank0:
+                info("Saving state, epoch: %d iter:0", epoch)
                 snapshots += [self.save_networks(n, epoch) for n in ("net", "ema", "optimizer_G")]
-        snapshots += [self.save_networks(n, "final") for n in ("net", "ema")]
+        if rank0:
+            snapshots += [self.save_networks(n, "final") for n in ("net", "ema")]
+        if self.shard.world > 1:  # every rank returns once rank 0's snapshots are written
+            mesh.barrier()
         if tb is not None:
             tb.close()
-        logging.info("The training stage is over!!!")
+        info("The training stage is over!!!")
         return {"steps": steps, "losses": losses, "snapshots": snapshots,
                 "step_seconds": step_seconds, "step_end_seconds": step_end_seconds,
                 "epoch_seconds": epoch_seconds, "loader_wait_seconds": loader_wait_seconds}
@@ -454,8 +534,8 @@ class Trainer:
             wt.join()
         if write_errors:
             raise write_errors[0]
-        logging.info("generated %d patches in %.1fs (%d already on disk, skipped)",
-                     npy_num - n_skipped, time.time() - t0, n_skipped)
+        self._info("generated %d patches in %.1fs (%d already on disk, skipped)",
+                   npy_num - n_skipped, time.time() - t0, n_skipped)
         return {
             "generated": npy_num - n_skipped,
             "skipped": n_skipped,

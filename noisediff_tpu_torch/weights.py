@@ -16,7 +16,7 @@ noisediff_tpu/train/torch_import.py, with the layout transforms inverted:
     norm scale      -> weight;  embedding -> weight
     RMSNorm g       (C,) -> (1, C, 1, 1)
 
-Orbax snapshot directories are not read yet (ROADMAP.md, Queue 1).
+Orbax snapshot directories are not read yet (ROADMAP.md, Queue 1 item 5).
 
 Training state crosses the same way: `adam_state_from_jax` turns an optax
 Adam state (the `mu` and `nu` trees and the step count of
@@ -148,7 +148,7 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: orbax snapshot directories are not read by the port yet "
-            "(ROADMAP.md, Queue 1); save the params as .npz or .pth"
+            "(ROADMAP.md, Queue 1 item 5); save the params as .npz or .pth"
         )
     raise FileNotFoundError(path)
 

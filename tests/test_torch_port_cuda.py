@@ -997,3 +997,139 @@ def test_fullframe_on_card_runs_the_kernels(dev):
     c = launch_counts()
     assert (c["fused_attn_tail"], c["fused_groupnorm_film_silu"], c["fused_dual_head"]) == (
         18, 84, 2)
+
+
+def test_kernels_launch_on_the_tensors_card(dev):
+    """Every kernel, given tensors on cuda:1 while cuda:0 is the current
+    device, launches on cuda:1 (the wrappers make the tensors' card current
+    for the launch, and restore the current device): each output lies on
+    cuda:1 and agrees with the plain version there (relative L2 within
+    2e-2); attn_tail's forward on its fused (48), streamed (192) and tiled
+    (384) routes, its backward on the fused (48) and tiled (96) ones."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    one, bf = torch.device("cuda", 1), torch.bfloat16
+    torch.cuda.set_device(0)
+    reset_launch_counts()
+    checks = []
+    try:
+        for c in (48, 192, 384):
+            x, tok, p = _attn_args(one, 2, 8, c)
+            checks.append((f"attn_tail {c}", fused_attn_tail(x, tok, *p),
+                           reference_attn_tail(x, tok, *p)))
+        for c in (48, 96):
+            x, tok, p = _attn_args(one, 2, 8, c)
+            g = _randn(one, 2, 8, 8, c, dtype=bf, seed=9)
+            got, want = fused_attn_tail_bwd(x, tok, *p, g), reference_attn_tail_bwd(x, tok, *p, g)
+            checks += [(f"attn_tail_bwd {c} {i}", a, b) for i, (a, b) in enumerate(zip(got, want))]
+        x = _randn(one, 2, 256, 48, scale=1.5, dtype=bf)
+        gn = (x, 1 + 0.1 * _randn(one, 48), 0.1 * _randn(one, 48, seed=1), None, None, 8, 1e-5,
+              0.3 * _randn(one, 48, seed=2))
+        checks.append(("groupnorm_silu", fused_groupnorm_film_silu(*gn),
+                       reference_groupnorm_film_silu(*gn)))
+        h, sa, sb = (_randn(one, 2, 8, 8, 48, dtype=bf, seed=s) for s in range(3))
+        hp = (_randn(one, 48, 48, scale=48 ** -0.5), 0.1 * _randn(one, 48),
+              _randn(one, 4, 48, scale=48 ** -0.5, seed=1), 0.1 * _randn(one, 4),
+              _randn(one, 4, 48, scale=48 ** -0.5, seed=2), 0.1 * _randn(one, 4, seed=3))
+        checks.append(("dual_head", fused_dual_head(h, sa, sb, *hp),
+                       reference_dual_head(h, sa, sb, *hp)))
+        xt, noise = _randn(one, 2, 8, 8, 4, seed=4), _randn(one, 2, 8, 8, 4, seed=5)
+        dargs = (h, sa, sb, xt, noise) + hp + (ddim_step_scalars(0.3, 0.45, 0.1, 0.7),)
+        checks.append(("ddim_head", fused_ddim_head_update(*dargs),
+                       reference_ddim_head_update(*dargs)))
+        x, g = _gn_inputs(one, 2, 8, 8, 48)
+        checks += [("gn_stats", a, b) for a, b in zip(gn_stats(x), reference_gn_stats(x))]
+        checks += [("gn_grad_stats", a, b)
+                   for a, b in zip(gn_grad_stats(g, x), reference_gn_grad_stats(g, x))]
+        checks.append(("conv_wgrad", conv_wgrad(g, x, 3, 3), reference_conv_wgrad(g, x, 3, 3)))
+        q, k, v = (_randn(one, 2, 2, 128, 32, dtype=bf, seed=s) for s in range(3))
+        checks.append(("flash_attention", flash_attention(q, k, v),
+                       reference_flash_attention(q, k, v)))
+        torch.cuda.synchronize(one)
+        assert torch.cuda.current_device() == 0
+    finally:
+        torch.cuda.set_device(0)
+    for name, got, want in checks:
+        assert got.device == one, name
+        assert bool(torch.isfinite(got.float()).all()) and _rel(got, want) < 2e-2, name
+    assert all(launch_counts().values()), launch_counts()
+
+
+DIST_RANK = r'''
+import hashlib, json, os
+import torch
+from noisediff_tpu_torch.cli.common import set_precision_flags
+from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from noisediff_tpu_torch.models import NoiseDiffNet, is_unread_parameter
+from noisediff_tpu_torch.ops.kernels import launch_counts
+from noisediff_tpu_torch.ops.schedules import make_schedule
+from noisediff_tpu_torch.parallel import mesh
+from noisediff_tpu_torch.train.state import make_diffusion_train_step, make_optimizer
+
+set_precision_flags()
+shard, dev = mesh.setup(torch.device("cuda"), "gloo")
+torch.manual_seed(0)
+model = NoiseDiffNet(dim=16, dtype=torch.bfloat16).to(dev, memory_format=torch.channels_last)
+net = mesh.wrap(model.train(), dev, is_unread_parameter)
+gd = GaussianDiffusion(net, make_schedule("sigmoid2", 1000), image_size=32, device=dev)
+step = make_diffusion_train_step(gd, make_optimizer(model.parameters()), shard=shard)
+g = torch.Generator(device=dev).manual_seed(1)
+batch = {"noise": 0.02 * torch.randn((4, 32, 32, 4), generator=g, device=dev),
+         "clean_img": 0.2 * torch.rand((4, 32, 32, 4), generator=g, device=dev),
+         "coord": torch.rand((4, 32, 32, 2), generator=g, device=dev),
+         "iso_ratio_idx": torch.tensor([24, 3, 24, 7], device=dev)}
+batch = {k: shard.rows(v) for k, v in batch.items()}
+metrics = []
+for i in range(2):
+    g.manual_seed(100 + i)
+    metrics.append({k: float(v) for k, v in step(batch, g).items()})
+h = hashlib.sha256()
+for p in model.parameters():
+    h.update(p.detach().float().cpu().numpy().tobytes())
+print(json.dumps({"rank": shard.rank, "device": str(dev), "metrics": metrics,
+                  "digest": h.hexdigest(), "launches": launch_counts()}))
+mesh.teardown()
+'''
+
+
+def test_gloo_two_rank_step_on_one_card(dev, tmp_path):
+    """Two ranks of a DDP training step (NoiseDiffNet dim 16, bf16, the
+    kernels' route, crop 32, global batch 4) over gloo on CUDA tensors,
+    both on cuda:0: both log the same loss and grad norm, end with
+    bit-equal parameters, and launch the training path's kernels."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    try:
+        for rank in (0, 1):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+            procs.append(subprocess.Popen([sys.executable, "-c", DIST_RANK], cwd=root, env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        outs = []
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-4000:]
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    r0, r1 = outs
+    assert (r0["device"], r1["device"]) == ("cuda:0", "cuda:0")
+    assert r0["metrics"] == r1["metrics"] and r0["digest"] == r1["digest"]
+    for name in ("fused_attn_tail", "fused_attn_tail_bwd", "gn_stats", "gn_grad_stats",
+                 "fused_dual_head"):
+        assert r0["launches"][name] > 0 and r0["launches"][name] == r1["launches"][name], name

@@ -243,8 +243,14 @@ def test_test_denoising_cli_defaults_to_the_card_and_raises_without_one(tmp_path
     assert test_denoising.build_parser().parse_args(argv).device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         test_denoising.main(argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_denoising.main(argv + ["--launcher", "pytorch", "--device", "cpu"])
+    # --launcher pytorch without a launcher's WORLD_SIZE evaluates as one
+    # process (rank -1), as the JAX CLI does
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    seen = {}
+    monkeypatch.setattr(test_denoising, "evaluate", lambda args: seen.update(vars(args)) or {})
+    assert test_denoising.main(argv + ["--launcher", "pytorch", "--device", "cpu"]) == {}
+    assert (seen["dist"], seen["rank"], seen["world_size"], seen["device"]) == (False, -1, 1,
+                                                                               "cpu")
 
 
 def test_test_denoising_cli_main_on_the_cpu(tmp_path, weights):

@@ -51,6 +51,19 @@ def test_evaluation_modules_are_ported_and_stand_alone(rel):
     assert not set(_imported_roots(path)) & set(FORBIDDEN)
 
 
+# multi-process data parallelism: the samplers and the process group / DDP
+# layer, counterparts of the JAX modules of the same relative path
+DISTRIBUTED_MODULES = ("data/sampler.py", "parallel/__init__.py", "parallel/mesh.py")
+
+
+@pytest.mark.parametrize("rel", DISTRIBUTED_MODULES)
+def test_distributed_modules_are_ported_and_stand_alone(rel):
+    path = os.path.join(ROOT, "noisediff_tpu_torch", rel)
+    assert path in _port_files()
+    assert os.path.exists(os.path.join(ROOT, "noisediff_tpu", rel))
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
 def test_importing_the_port_loads_no_jax():
     mods = [
         "noisediff_tpu_torch." + os.path.relpath(p, os.path.join(ROOT, "noisediff_tpu_torch"))

@@ -50,3 +50,48 @@ def nhwc_to_cl(x: np.ndarray) -> torch.Tensor:
 
 def cl_to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.permute(0, 2, 3, 1).detach().float().numpy()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(code: str, world: int, timeout: float = 120.0, env=None):
+    """Run `code` (python -c) as `world` processes with torchrun's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT on a
+    free local port), one torch thread each; returns each rank's last
+    stdout line parsed as JSON, by rank. Each child gets at most `timeout`
+    seconds; every child still running is killed on the way out."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(world):
+            child = dict(os.environ, **(env or {}))
+            child.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                         MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                         PYTHONPATH=os.pathsep.join(
+                             [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+            procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=root, env=child,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        outs = []
+        for rank, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{err[-4000:]}"
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
