@@ -109,6 +109,19 @@ Every phase runs, in this order (any failure exits non-zero):
   dim96    a dim-96 NoiseDiffNet forward on its route (the heads on their
            plain version, the other kernels at 96..768 channels) at B 1,
            64^2, against the CPU
+  posemb   the UNet_PosEmbV2 family (models/others.py) at dim 48: each
+           net's parameter count and a bf16 forward on the card against
+           fp32 on the CPU; UNet_PosEmbV2_CameraCond through the training
+           CLI at the canonical config on both wgrad routes (one epoch of
+           the train phase's tree, 25 steps) and through the generation CLI
+           from its net_final.pth (DPM-10, 2 batches; DDIM-100 unfused, 1
+           batch), each run's launches of attn_tail (forward and backward),
+           groupnorm_silu, gn_stats, gn_grad_stats and conv_wgrad against
+           the family's tables; UNet_PosEmbV2 and UNet_PosEmbV2_NoPosition
+           one epoch and 1 DPM-10 batch each; CameraCond's device busy time
+           an evaluation and a step, peak memory; LinearAttention at B 4, C
+           384, 64^2 against the CPU; interpolate at t = 10. Its launches
+           are added to the kernels line (launches_posemb)
 Multi-process data parallelism, --remat and --profile (ranks are processes
 this script starts with torchrun's environment, `spawn_ranks`):
   dist_cli denoise  (after denoise) the denoising CLI at script.sh:24's
@@ -1449,12 +1462,13 @@ def make_train_tree(root: str, seed: int) -> None:
         f.write("\n".join(lines) + "\n")
 
 
-def train_cli(seed: int, workdir: str, out_name: str, per_step, what: str):
-    """One training run through the CLI over the tree in workdir, counted
-    from zero: losses, each kernel's launches per step, and the rate over
-    the window after the first 3 steps on the device's clock from the end
-    of step 3 to the end of the last (loader waits and uploads fall in
-    between)."""
+def train_cli(seed: int, workdir: str, out_name: str, per_step, what: str,
+              net_name: str = "NoiseDiffNet"):
+    """One training run of `net_name` through the CLI over the tree in
+    workdir, counted from zero: losses, each kernel's launches per step,
+    and the rate over the window after the first 3 steps on the device's
+    clock from the end of step 3 to the end of the last (loader waits and
+    uploads fall in between)."""
     import numpy as np
     import torch
 
@@ -1462,7 +1476,7 @@ def train_cli(seed: int, workdir: str, out_name: str, per_step, what: str):
     from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     out = os.path.join(workdir, out_name)
-    argv = train_argv(seed, workdir, out)
+    argv = train_argv(seed, workdir, out, net_name)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1816,16 +1830,16 @@ def profile_wgrad_route(step, batch, gen):
     return dict(g_layouts=layouts, busy_ms=busy, categories=cats)
 
 
-def make_sid_tree(root: str, seed: int) -> None:
+def make_sid_tree(root: str, seed: int, batches: int = N_BATCHES) -> None:
     """A miniature SID tree: clean Bayer frames of 1280^2 (packed 640^2,
-    whose patch grid has 4 distinct 512^2 origins) for N_BATCHES batches,
+    whose patch grid has 4 distinct 512^2 origins) for `batches` batches,
     and one ISO800 x250 training pair."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     long_dir = os.path.join(root, "SID", "Sony", "long")
     os.makedirs(long_dir)
-    for i in range(N_BATCHES * BATCH // 4):
+    for i in range(batches * BATCH // 4):
         arr = rng.integers(512, 4096, size=(2 * FRAME, 2 * FRAME)).astype(np.uint16)
         np.save(os.path.join(long_dir, f"{i + 1:05d}_00_10s.ARW.npy"), arr)
     with open(os.path.join(root, "SID", "Sony_train_list.txt"), "w") as f:
@@ -1847,11 +1861,12 @@ def gen_setup(workdir: str, seed: int) -> str:
     return ckpt
 
 
-def gen_argv(workdir: str, ckpt: str, seed: int, out: str, sampler):
+def gen_argv(workdir: str, ckpt: str, seed: int, out: str, sampler,
+             net_name: str = "NoiseDiffNet"):
     return [
         "--name", "ISO800_Ratio250", "--resume", ckpt, "--generation_result", "noise",
         "--testset", "NoiseImageGenerationDataset", "--save_npy", "--random_seed", str(seed),
-        "--beta_schedule", "sigmoid2", "--batch_size", str(BATCH), "--net_name", "NoiseDiffNet",
+        "--beta_schedule", "sigmoid2", "--batch_size", str(BATCH), "--net_name", net_name,
         "--positional_encoding", "--dim", str(DIM), "--crop_size", str(CROP),
         "--with_camera_settings", *sampler,
         "--device", "cuda", "--num_workers", "2", "--iso", "800", "--ratio", "250",
@@ -1860,10 +1875,10 @@ def gen_argv(workdir: str, ckpt: str, seed: int, out: str, sampler):
     ]
 
 
-def run_generation(argv, per_batch, what: str):
-    """One generation run through the CLI, counted from zero: the npy
-    contract and each kernel's launches per batch; returns the summary,
-    the counts and the files."""
+def run_generation(argv, per_batch, what: str, batches: int = N_BATCHES):
+    """One generation run through the CLI over a tree of `batches` batches,
+    counted from zero: the npy contract and each kernel's launches per
+    batch; returns the summary, the counts and the files."""
     import numpy as np
 
     from noisediff_tpu_torch.cli import test_diffusion
@@ -1874,12 +1889,12 @@ def run_generation(argv, per_batch, what: str):
     counts = launch_counts()
 
     n = summary["generated"]
-    if n != N_BATCHES * BATCH or summary["batches"] != N_BATCHES:
-        raise AssertionError(f"{what}: expected {N_BATCHES} batches of {BATCH} patches: {summary}")
+    if n != batches * BATCH or summary["batches"] != batches:
+        raise AssertionError(f"{what}: expected {batches} batches of {BATCH} patches: {summary}")
     for name, want in per_batch.items():
-        if counts[name] != want * N_BATCHES:
+        if counts[name] != want * batches:
             raise AssertionError(f"{what}: {name}: {counts[name]} launches, expected {want} per "
-                                 f"batch x {N_BATCHES} batches")
+                                 f"batch x {batches} batches")
     files = sorted(glob.glob(os.path.join(summary["out_dir"], "*.npy")))
     if len(files) != n or glob.glob(os.path.join(summary["out_dir"], "*.tmp.npy")):
         raise AssertionError(f"{what}: {len(files)} npy files for {n} patches, or temp files left")
@@ -1893,10 +1908,11 @@ def run_generation(argv, per_batch, what: str):
             raise AssertionError(f"{what}: {base}: {arr.shape} {arr.dtype} or not finite")
     secs = summary["batch_seconds"]
     rate = n / sum(secs)
-    steady = BATCH * (len(secs) - 1) / sum(secs[1:])
+    # with one batch there is no batch after the first
+    steady = BATCH * (len(secs) - 1) / sum(secs[1:]) if len(secs) > 1 else None
+    after = f"{steady:.4f} after the first batch" if steady else "one batch"
     log(f"  generated {n} patches of {CROP}^2 in {sum(secs):.3f} s of sampling: "
-        f"{rate:.4f} patches/s ({steady:.4f} after the first batch); batch seconds "
-        f"{[round(s, 4) for s in secs]}")
+        f"{rate:.4f} patches/s ({after}); batch seconds {[round(s, 4) for s in secs]}")
     log(f"  launches: {counts}")
     return dict(counts=counts, patches=n, patches_per_s=rate, steady_patches_per_s=steady,
                 batch_seconds=secs, files=files)
@@ -2888,11 +2904,11 @@ def phase_remat(ref):
                 launches=b["launches"], extra_launches=extra)
 
 
-def train_argv(seed: int, workdir: str, out: str):
+def train_argv(seed: int, workdir: str, out: str, net_name: str = "NoiseDiffNet"):
     """The training CLI at the canonical config over the tree in workdir."""
     return [
         "--use_tb_logger", "--save_epoch_freq", "1", "--generation_result", "noise",
-        "--name", "train_diffusion", "--net_name", "NoiseDiffNet", "--beta_schedule", "sigmoid2",
+        "--name", "train_diffusion", "--net_name", net_name, "--beta_schedule", "sigmoid2",
         "--positional_encoding", "--trainset", "SonyTrainDataset", "--dim", str(DIM),
         "--crop_size", str(CROP), "--with_camera_settings", "--batch_size", str(BATCH),
         "--max_iter", "1", "--random_seed", str(seed), "--device", "cuda",
@@ -3081,6 +3097,297 @@ def phase_profile_cli(seed: int, workdir: str):
         log(f"    {v / steps:9.4f} ms a step  {launches[cat] / steps:7.1f} launches a step  {cat}")
     return dict(world=world, launches=launches, ms=ms, busy_ms=busy / steps,
                 span_ms=span / steps, nccl_ms=nccl / steps)
+
+
+# the UNet_PosEmbV2 family (models/others.py) at dim 48: the JAX package's
+# pinned parameter counts (tests/test_models.py:50-63)
+POSEMB_PARAMS = {"UNet_PosEmbV2": 19_702_596, "UNet_PosEmbV2_NoPosition": 19_700_308,
+                 "UNet_PosEmbV2_CameraCond": 21_262_164}
+POSEMB_CAM = "UNet_PosEmbV2_CameraCond"
+# launches an evaluation: attn_tail at CameraCond's 8 AttnBlocks (4 down, 4
+# up); groupnorm_silu at every GroupNorm but the per-pixel-FiLM ones of
+# pos_block1/2's block1 (NoPosition's plain pos blocks run it: 2 more)
+POSEMB_ATTN = {"UNet_PosEmbV2": 0, "UNet_PosEmbV2_NoPosition": 0,
+               "UNet_PosEmbV2_CameraCond": 8}
+POSEMB_GN_EVAL = {"UNet_PosEmbV2": 42, "UNet_PosEmbV2_NoPosition": 44,
+                  "UNet_PosEmbV2_CameraCond": 42}
+# a training step: gn_stats and gn_grad_stats at all 44 GroupNorms; on the
+# NOISEDIFF_WGRAD=pallas route conv_wgrad at the 59 stride-1 1x1 / 3x3 convs
+# with Ci, Co >= 32 (tests/test_torch_port_posemb.py counts both on the CPU)
+POSEMB_GN_STEP = 44
+POSEMB_WGRAD_PER_STEP = 59
+# the forward on the card (bf16, kernels) against the CPU in fp32: the bound
+# of the NoiseDiffNet forward's check (phase_model)
+POSEMB_FWD_REL = 5e-2
+POSEMB_FWD_SHAPE = (2, 128)  # B, side
+LINATTN_SHAPE = (4, 384, 64, 64)  # B, C, H, W
+INTERP_T = 10
+
+
+def posemb_per_batch(name: str, evals: int):
+    """Each kernel's launches in a generation batch of `evals` evaluations."""
+    out = {k: 0 for k in KERNEL_WRAPPERS}
+    out.update(fused_attn_tail=POSEMB_ATTN[name] * evals,
+               fused_groupnorm_film_silu=POSEMB_GN_EVAL[name] * evals)
+    return out
+
+
+def posemb_per_step(name: str, wgrad: bool):
+    """Each kernel's launches in a training step (wgrad: the conv_wgrad
+    route)."""
+    out = {k: 0 for k in KERNEL_WRAPPERS}
+    out.update(fused_attn_tail=POSEMB_ATTN[name], fused_attn_tail_bwd=POSEMB_ATTN[name],
+               gn_stats=POSEMB_GN_STEP, gn_grad_stats=POSEMB_GN_STEP,
+               conv_wgrad=POSEMB_WGRAD_PER_STEP if wgrad else 0)
+    return out
+
+
+def _posemb_cfg():
+    from types import SimpleNamespace
+
+    return SimpleNamespace(dim=DIM, inp_dim=4, cond_dim=4)
+
+
+def _posemb_inputs(b: int, s: int, seed: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, s, s, 4)).astype(np.float32))
+    cond = {"clean_img": torch.from_numpy(rng.uniform(0, 0.3, (b, s, s, 4)).astype(np.float32)),
+            "position": torch.from_numpy(rng.uniform(0, 1, (b, s, s, 2)).astype(np.float32)),
+            "iso_ratio_idx": torch.from_numpy(rng.integers(0, 75, b))}
+    t = torch.from_numpy(rng.integers(0, 1000, b))
+    return x, t, cond
+
+
+def posemb_forward_check(seed: int, name: str):
+    """The parameter count at dim 48, then one forward on the card (bf16,
+    the kernels) against the same weights in fp32 on the CPU (the plain
+    versions), with the kernels' launches of the evaluation."""
+    import torch
+
+    from noisediff_tpu_torch.models import define_network
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.manual_seed(seed)
+    cpu = define_network(name, _posemb_cfg()).eval()
+    n = sum(p.numel() for p in cpu.parameters())
+    if n != POSEMB_PARAMS[name]:
+        raise AssertionError(f"{name}: {n} parameters at dim {DIM}, expected "
+                             f"{POSEMB_PARAMS[name]}")
+    card = define_network(name, _posemb_cfg(), dtype=torch.bfloat16)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    card = card.cuda().to(memory_format=torch.channels_last).eval()
+    b, s = POSEMB_FWD_SHAPE
+    x, t, cond = _posemb_inputs(b, s, seed)
+    with torch.inference_mode():
+        want = cpu(x, t, cond)
+        reset_launch_counts()
+        got = card(x.cuda(), t.cuda(), {k: v.cuda() for k, v in cond.items()}).float().cpu()
+        counts = launch_counts()
+    if got.shape != (b, s, s, 4) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} forward on the card: shape {tuple(got.shape)} or not "
+                             "finite")
+    want_counts = posemb_per_batch(name, 1)
+    if counts != want_counts:
+        raise AssertionError(f"{name} forward launches {counts}, expected {want_counts}")
+    rel = rel_l2(got, want)
+    log(f"  {name}: {n} parameters; forward {b}x{s}^2 card bf16 vs CPU fp32 rel L2 {rel:.4g}; "
+        f"launches {({k: v for k, v in counts.items() if v})}")
+    if rel > POSEMB_FWD_REL:
+        raise AssertionError(f"{name}: card forward disagrees with the CPU: rel L2 {rel}")
+    return {"params": n, "rel_l2": rel}
+
+
+def posemb_profile(seed: int, steps: int = PROFILE_STEPS, evals: int = 3):
+    """UNet_PosEmbV2_CameraCond at the canonical shape: the device busy time
+    of an evaluation and of a training step (torch.profiler), with the
+    profiled wall time and the idle share, and the step's peak memory."""
+    import torch
+
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import define_network
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+    from noisediff_tpu_torch.train.state import make_diffusion_train_step, make_optimizer
+
+    torch.manual_seed(seed)
+    dev = torch.device("cuda")
+    model = define_network(POSEMB_CAM, _posemb_cfg(), dtype=torch.bfloat16)
+    model = model.to(dev, memory_format=torch.channels_last)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = _canonical_batch(g, dev)
+    cond = {"clean_img": batch["clean_img"], "position": batch["coord"],
+            "iso_ratio_idx": batch["iso_ratio_idx"]}
+    x = torch.randn((BATCH, CROP, CROP, 4), generator=g, device=dev)
+    t = torch.full((BATCH,), 500, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+
+    def profiled(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        by_name = _device_ms_by_name(prof, n)
+        cats = {}
+        for name, ms in by_name.items():
+            cats[_category(name)] = cats.get(_category(name), 0.0) + ms
+        return sum(by_name.values()), wall, cats
+
+    model.eval()
+    with torch.inference_mode():
+        eval_ms = time_ms(lambda: model(x, t, cond), reps=10, warmup=2)
+        busy, wall, cats = profiled(lambda: model(x, t, cond), evals)
+    out["eval"] = dict(cuda_event_ms=eval_ms, busy_ms=busy, wall_ms=wall, categories=cats)
+    model.train()
+    gd = GaussianDiffusion(model, make_schedule("sigmoid2", 1000), image_size=CROP, device=dev)
+    step = make_diffusion_train_step(gd, make_optimizer(model.parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(batch, g), reps=steps, warmup=2)
+    busy_s, wall_s, cats_s = profiled(lambda: step(batch, g), steps)
+    peak = torch.cuda.max_memory_allocated()
+    out["step"] = dict(cuda_event_ms=step_ms, busy_ms=busy_s, wall_ms=wall_s, categories=cats_s,
+                       peak_bytes=peak)
+    for what, r in out.items():
+        log(f"  {POSEMB_CAM} one {'evaluation' if what == 'eval' else 'training step'} "
+            f"({BATCH}x{CROP}^2, bf16): {r['cuda_event_ms']:.4f} ms by CUDA events"
+            + (f", peak {peak / 2 ** 30:.3f} GiB" if what == "step" else ""))
+        if not r["busy_ms"]:
+            log("  torch.profiler recorded no device time")
+            continue
+        log(f"    device busy {r['busy_ms']:.4f} ms, profiled wall {r['wall_ms']:.4f} ms (idle "
+            f"share {max(0.0, 1 - r['busy_ms'] / r['wall_ms']):.4f})")
+        for cat, ms in sorted(r["categories"].items(), key=lambda kv: -kv[1]):
+            log(f"    {ms:9.4f} ms  {100 * ms / r['busy_ms']:5.1f}%  {cat}")
+    return out
+
+
+def posemb_surface(seed: int, ckpt: str):
+    """blocks.LinearAttention on the card (bf16) against the CPU (fp32), and
+    GaussianDiffusion.interpolate at t = INTERP_T from ckpt's
+    UNet_PosEmbV2_CameraCond weights at the canonical shape: finite, NHWC."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import define_network
+    from noisediff_tpu_torch.models.blocks import LinearAttention
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+    from noisediff_tpu_torch.weights import load_into
+
+    b, c, h, w = LINATTN_SHAPE
+    torch.manual_seed(seed)
+    cpu = LinearAttention(c)
+    card = LinearAttention(c)
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda()
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        want = cpu(x)
+        got = card(x.cuda().to(torch.bfloat16)).float().cpu()
+    rel = rel_l2(got, want)
+    log(f"  LinearAttention({c}) at {b}x{h}x{w}, card bf16 vs CPU fp32: rel L2 {rel:.4g}")
+    if rel > ATTN_REL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"LinearAttention: card and CPU disagree: rel L2 {rel}")
+
+    dev = torch.device("cuda")
+    model = define_network(POSEMB_CAM, _posemb_cfg(), dtype=torch.bfloat16)
+    load_into(model, ckpt)
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    gd = GaussianDiffusion(model, make_schedule("sigmoid2", 1000), image_size=CROP, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = _canonical_batch(g, dev)
+    cond = {"clean_img": batch["clean_img"], "position": batch["coord"],
+            "iso_ratio_idx": batch["iso_ratio_idx"]}
+    x1 = 0.05 * torch.randn((BATCH, CROP, CROP, 4), generator=g, device=dev)
+    x2 = 0.05 * torch.randn((BATCH, CROP, CROP, 4), generator=g, device=dev)
+    t0 = time.perf_counter()
+    y = gd.interpolate(x1, x2, cond, t=INTERP_T, lam=0.5, generator=g)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if y.shape != x1.shape or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"interpolate: shape {tuple(y.shape)} or not finite")
+    log(f"  interpolate at t={INTERP_T} ({INTERP_T} evaluations, {BATCH}x{CROP}^2): finite "
+        f"{tuple(y.shape)}, std {float(y.std()):.4g}, {secs:.3f} s")
+    return {"linear_attention_rel_l2": rel, "interpolate_seconds": secs}
+
+
+def phase_posemb(seed: int, workdir: str):
+    """The UNet_PosEmbV2 family at dim 48, crop 512, batch 4, bf16: each
+    net's parameter count and its forward against the CPU;
+    UNet_PosEmbV2_CameraCond trained through the training CLI on both
+    wgrad routes (one epoch of the miniature tree, TRAIN_STEPS steps) and
+    sampled through the generation CLI from its net_final.pth (DPM-10, 2
+    batches; DDIM-100 unfused, 1 batch); UNet_PosEmbV2 and
+    UNet_PosEmbV2_NoPosition trained one epoch and sampled 1 DPM-10 batch
+    each; each run's launches counted from zero against the tables above;
+    CameraCond's device busy time an evaluation and a step; LinearAttention
+    and interpolate on the card."""
+    import torch
+
+    out = {"forward": {name: posemb_forward_check(seed, name) for name in POSEMB_PARAMS}}
+    make_train_tree(workdir, seed)
+    gen2, gen1 = os.path.join(workdir, "gen2"), os.path.join(workdir, "gen1")
+    make_sid_tree(gen2, seed)
+    make_sid_tree(gen1, seed, batches=1)
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    def snapshot(run):
+        return os.path.join(run["out"], "train_diffusion", "snapshot", "net_final.pth")
+
+    train = {}
+    for route in ("xla", "pallas"):
+        if route == "pallas":
+            os.environ["NOISEDIFF_WGRAD"] = "pallas"
+        try:
+            train[route] = train_cli(seed, workdir, f"posemb_{route}",
+                                     posemb_per_step(POSEMB_CAM, route == "pallas"),
+                                     f"{POSEMB_CAM} train ({route})", net_name=POSEMB_CAM)
+        finally:
+            os.environ.pop("NOISEDIFF_WGRAD", None)
+        add(train[route]["counts"])
+    ckpt = snapshot(train["xla"])
+    torch.cuda.reset_peak_memory_stats()
+    dpm = run_generation(gen_argv(gen2, ckpt, seed, "dpm", ["--sampler", "dpm"], POSEMB_CAM),
+                         posemb_per_batch(POSEMB_CAM, DPM_STEPS), f"{POSEMB_CAM} dpm")
+    gen_peak = torch.cuda.max_memory_allocated()
+    ddim = run_generation(gen_argv(gen1, ckpt, seed, "ddim", [
+        "--sampler", "ddim", "--sampling_timesteps", str(DDIM_STEPS)], POSEMB_CAM),
+        posemb_per_batch(POSEMB_CAM, DDIM_STEPS), f"{POSEMB_CAM} ddim (unfused)", batches=1)
+    add(dpm["counts"])
+    add(ddim["counts"])
+    log(f"  {POSEMB_CAM}: training {train['xla']['steps_per_s']:.4f} steps/s (conv_wgrad route "
+        f"{train['pallas']['steps_per_s']:.4f}), peak {train['xla']['peak_bytes'] / 2 ** 30:.3f} "
+        f"GiB ({train['pallas']['peak_bytes'] / 2 ** 30:.3f}); DPM-10 "
+        f"{dpm['steady_patches_per_s']:.4f} patches/s after the first batch, generation peak "
+        f"{gen_peak / 2 ** 30:.3f} GiB; DDIM-{DDIM_STEPS} {ddim['patches_per_s']:.4f} "
+        "patches/s")
+    others = {}
+    for name in ("UNet_PosEmbV2", "UNet_PosEmbV2_NoPosition"):
+        t = train_cli(seed, workdir, f"posemb_{name}", posemb_per_step(name, False),
+                      f"{name} train", net_name=name)
+        g = run_generation(gen_argv(gen1, snapshot(t), seed, f"dpm_{name}", ["--sampler", "dpm"],
+                                    name), posemb_per_batch(name, DPM_STEPS), f"{name} dpm",
+                           batches=1)
+        add(t["counts"])
+        add(g["counts"])
+        others[name] = {"steps_per_s": t["steps_per_s"], "patches_per_s": g["patches_per_s"]}
+    out["profile"] = posemb_profile(seed)
+    out["surface"] = posemb_surface(seed, ckpt)
+    out.update(counts=counts, train=train, dpm=dpm, ddim=ddim, gen_peak_bytes=gen_peak,
+               others=others)
+    return out
 
 
 KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
@@ -3276,15 +3583,26 @@ def main(argv=None) -> int:
     attn = phase_attention(args.seed)
     log("[dim96] a dim-96 NoiseDiffNet forward on its route, card vs CPU")
     phase_dim96(args.seed)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        log("[posemb] the UNet_PosEmbV2 family: forwards, CameraCond trained and sampled "
+            "through the CLIs, the other two nets, LinearAttention, interpolate")
+        t0 = time.time()
+        posemb = phase_posemb(args.seed, workdir)
+        log(f"  posemb phase {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     log(f"[done] {time.time() - t_start:.1f} s")
 
     gc, dc, tc, steps = gen["counts"], ddim["counts"], train["counts"], train["steps"]
-    fc = fullframe["counts"]
+    fc, pc = fullframe["counts"], posemb["counts"]
     launches = {}
     for name in ("attn_tail", "groupnorm_silu", "dual_head", "attn_tail_bwd", "gn_stats",
                  "gn_grad_stats"):
         w = KERNEL_META[name][0]
-        launches[name] = (gc[w] + dc[w] + tc[w] + fc[w], {
+        launches[name] = (gc[w] + dc[w] + tc[w] + fc[w] + pc[w], {
+            # the UNet_PosEmbV2 family's CLI runs (posemb phase)
+            "launches_posemb": pc[w],
             "launches_generation": gc[w], "launches_per_batch": gc[w] / N_BATCHES,
             "launches_ddim": dc[w], "launches_ddim_per_batch": dc[w] / N_BATCHES,
             "launches_training": tc[w], "launches_per_step": tc[w] / steps,
@@ -3297,8 +3615,9 @@ def main(argv=None) -> int:
             "launches_remat_step": remat["launches"][w]})
     n = ddim["counts"]["fused_ddim_head_update"]
     launches["ddim_head"] = (n, {"launches_per_batch": n / N_BATCHES})
-    n = wgrad["counts"]["conv_wgrad"]
-    launches["conv_wgrad"] = (n, {"launches_per_step": n / wgrad["steps"]})
+    n, n_pos = wgrad["counts"]["conv_wgrad"], pc["conv_wgrad"]
+    launches["conv_wgrad"] = (n + n_pos, {"launches_per_step": n / wgrad["steps"],
+                                          "launches_posemb": n_pos})
     launches["flash_attention"] = (attn["counts"]["flash_attention"], {})
     print(json.dumps(kernels_line(results, launches)))
     print(card)

@@ -1,5 +1,5 @@
-"""Gaussian diffusion: the training loss, and DPM-Solver++(2M), DDIM and
-ancestral DDPM sampling.
+"""Gaussian diffusion: the training loss, DPM-Solver++(2M), DDIM and
+ancestral DDPM sampling, the `sample` dispatcher and latent interpolation.
 
 Port of noisediff_tpu/diffusion/gaussian.py (reference
 `models/denoising_diffusion_pytorch.py`, GaussianDiffusion :167-542). The
@@ -7,13 +7,14 @@ JAX `lax.scan` bodies become Python loops; the per-step scalars are
 computed on the host exactly as the JAX package computes them, and the
 sample carry is fp32 whatever the model's compute dtype. Randomness comes
 from a caller's `torch.Generator`; the JAX package's random streams cannot
-be reproduced, so `init_noise` lets a caller (and the tests) fix x_T, and
-`p_losses` / `loss` take the noise and the timesteps from the caller.
+be reproduced, so `init_noise` lets a caller (and the tests) fix x_T,
+`p_losses` / `loss` take the noise and the timesteps from the caller, and
+`interpolate` its draws.
 """
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -235,7 +236,8 @@ class GaussianDiffusion:
     def fused_tail_trunk(self) -> Optional[TrunkFn]:
         """The `trunk_fn` that takes DDIM through the fused tail: where the
         model has a trunk (`NoiseDiffNet.trunk`) and the objective is
-        pred_v; None otherwise."""
+        pred_v; None otherwise (the UNet_PosEmbV2 family, whose head is one
+        1x1 conv, samples DDIM unfused, as in the JAX package)."""
         model = self.model_fn
         if not hasattr(model, "trunk") or self.objective != "pred_v":
             return None
@@ -376,3 +378,56 @@ class GaussianDiffusion:
                 x = _f32(ratio) * x - _f32(a_n[i] * ph[i]) * d
             x0_prev = x0
         return self.unnormalize(x)
+
+    # -- dispatcher (:446-451) --------------------------------------------------
+    def sample(self, batch_size: int, condition: Condition = None,
+               generator: Optional[torch.Generator] = None,
+               init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A batch of image_size^2 samples: DDIM where `is_ddim_sampling`
+        (through the fused tail where `fused_tail_trunk` gives one), else
+        ancestral DDPM."""
+        shape = (batch_size, self.image_size, self.image_size, self.channels)
+        if self.is_ddim_sampling:
+            return self.ddim_sample(shape, condition, generator=generator, init_noise=init_noise,
+                                    trunk_fn=self.fused_tail_trunk())
+        return self.p_sample_loop(shape, condition, generator=generator, init_noise=init_noise)
+
+    # -- latent interpolation (:453-471) -----------------------------------------
+    @torch.inference_mode()
+    def interpolate(self, x1: torch.Tensor, x2: torch.Tensor, condition: Condition = None,
+                    t: Optional[int] = None, lam: float = 0.5,
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[Tuple[torch.Tensor, torch.Tensor, Sequence[torch.Tensor]]]
+                    = None) -> torch.Tensor:
+        """Noise x1 and x2 to step t (default T - 1) with q_sample, mix them
+        as (1 - lam) x1_t + lam x2_t, then run the ancestral posterior loop
+        from t - 1 down to 0 with x0 clipped to [-1, 1], adding noise at
+        every step but the last. The draws come from `generator` (x1's
+        noise, x2's, then each step's), or are given as `draws`: (x1's
+        noise, x2's, [the noise of steps t - 1, ..., 1]). Not unnormalised,
+        as in the reference."""
+        t = self.num_timesteps - 1 if t is None else int(t)
+        if x1.shape != x2.shape:
+            raise ValueError(f"x1 {tuple(x1.shape)} and x2 {tuple(x2.shape)} differ in shape")
+        b = x1.shape[0]
+
+        def randn():
+            return torch.randn(x1.shape, generator=generator, device=self.device)
+
+        n1, n2, steps = draws if draws is not None else (randn(), randn(), None)
+        if steps is not None and len(steps) != max(t - 1, 0):
+            raise ValueError(f"interpolate from t={t} draws {max(t - 1, 0)} step noises, "
+                             f"got {len(steps)}")
+        tb = self._timesteps(t, b)
+        x1, x2 = (v.to(device=self.device, dtype=torch.float32) for v in (x1, x2))
+        x = ((1 - lam) * self.q_sample(x1, tb, n1.to(self.device))
+             + lam * self.q_sample(x2, tb, n2.to(self.device)))
+        for k, i in enumerate(range(t - 1, -1, -1)):
+            ti = self._timesteps(i, b)
+            _, x_start = self.model_predictions(x, ti, condition)
+            mean, _, log_var = self.q_posterior(x_start.clamp(-1.0, 1.0), x, ti)
+            x = mean
+            if i > 0:
+                noise = randn() if steps is None else steps[k].to(self.device)
+                x = x + torch.exp(0.5 * log_var) * noise
+        return x

@@ -1,6 +1,6 @@
-"""Building blocks of NoiseDiffNet in PyTorch.
+"""Building blocks of NoiseDiffNet and the UNet_PosEmbV2 family in PyTorch.
 
-Port of the NoiseDiffNet subset of noisediff_tpu/models/blocks.py
+Port of noisediff_tpu/models/blocks.py
 (reference `models/archs/Diffusion_arch.py`). Module and parameter names
 follow the reference torch state_dict, so a reference `.pth` loads with a
 strict key match (`Sequential` slots reproduce indices such as
@@ -24,9 +24,9 @@ a CUDA tensor launches its kernel or raises; nothing falls back per call.
 Stride-1 SAME convolutions can take their weight gradient from the
 conv_wgrad kernel instead of cuDNN, under the JAX package's variables
 (`wgrad_kernel_on`), where the input is bf16 and the widths are ones the
-kernel takes (`Conv2d.wgrad_route`). `RMSNorm` and `Attention` (full
-self-attention through the flash_attention kernel) are defined, as in the
-reference, but NoiseDiffNet does not use them.
+kernel takes (`Conv2d.wgrad_route`). `RMSNorm`, `Attention` (full
+self-attention through the flash_attention kernel) and `LinearAttention`
+are defined, as in the reference, but no shipped model uses them.
 """
 from __future__ import annotations
 
@@ -598,6 +598,35 @@ class Attention(nn.Module):
         attend = flash_attention if self.kernel else reference_flash_attention
         out = attend(q, k, v).transpose(1, 2).reshape(b, h, w, -1)
         return self.to_out(to_nchw(out))
+
+
+class LinearAttention(nn.Module):
+    """Softmax-kernel linear attention (:198-235; blocks.LinearAttention of
+    the JAX package): RMSNorm, a 1x1 qkv conv without bias, q softmaxed
+    over its head channels and scaled by dim_head^-0.5, k softmaxed over
+    the pixels, ctx = k v^T per head, out = ctx^T q, then `to_out`, the
+    reference's Sequential(1x1 conv, RMSNorm). Computed in x's dtype; no
+    shipped model runs it, and it has no kernel."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        hidden = heads * dim_head
+        self.norm = RMSNorm(dim)
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = nn.Sequential(Conv2d(hidden, dim, 1), RMSNorm(dim))
+
+    def forward(self, x):
+        b, _, h, w = x.shape
+        qkv = to_nhwc(self.to_qkv(self.norm(x))).view(b, h * w, 3, self.heads, self.dim_head)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 3, 1) for i in range(3))  # (B, heads, D, N)
+        q = q.softmax(dim=-2) * (self.dim_head ** -0.5)
+        k = k.softmax(dim=-1)
+        ctx = torch.einsum("bhdn,bhen->bhde", k, v)
+        out = torch.einsum("bhde,bhdn->bhen", ctx, q)
+        out = out.permute(0, 3, 1, 2).reshape(b, h, w, -1)
+        return self.to_out(to_nchw(out.contiguous()))
 
 
 class Downsample(nn.Sequential):

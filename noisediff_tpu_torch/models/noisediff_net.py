@@ -64,7 +64,8 @@ _UNREAD = (".norm1.", ".attn.to_q.", ".attn.to_k.")
 
 
 def is_unread_parameter(name: str) -> bool:
-    """Whether NoiseDiffNet's forward never reads parameter `name`."""
+    """Whether the forward never reads parameter `name`: an AttnBlock's
+    query and key path, in NoiseDiffNet and UNet_PosEmbV2_CameraCond."""
     return any(part in "." + name for part in _UNREAD)
 
 

@@ -15,8 +15,13 @@ noisediff_tpu/train/torch_import.py, with the layout transforms inverted:
     dense kernels   (in, out) -> (out, in)
     norm scale      -> weight;  embedding -> weight
     RMSNorm g       (C,) -> (1, C, 1, 1)
+    LinearAttention to_out -> to_out.0, out_norm -> to_out.1 (the
+                    reference's Sequential(conv, RMSNorm))
+    BatchNorm       the `batch_stats` collection's mean, var ->
+                    running_mean, running_var, beside a num_batches_tracked
+                    of 0 (flax counts no batches)
 
-Orbax snapshot directories are not read yet (ROADMAP.md, Queue 1 item 5).
+Orbax snapshot directories are not read yet (ROADMAP.md, Queue 1 item 3).
 
 Training state crosses the same way: `adam_state_from_jax` turns an optax
 Adam state (the `mu` and `nu` trees and the step count of
@@ -42,7 +47,7 @@ _NAME_RULES = {
 _STAGE_RE = re.compile(r"^(downs|ups)_(\d+)_(block1|block2|attn|down|up)$")
 _STAGE_SLOT = {"block1": "0", "block2": "1", "attn": "2", "down": "3", "up": "3"}
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight",
-         "g": "g"}
+         "g": "g", "mean": "running_mean", "var": "running_var"}
 _KEYSTR_RE = re.compile(r"\['([^']*)'\]")
 # LSID's torch ConvTranspose2d modules (noisediff_tpu/train/torch_import.py)
 _CONV_TRANSPOSE_NAMES = {"up6", "up7", "up8", "up9"}
@@ -107,6 +112,23 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Iterator[Tuple[Tuple[str, ..
             yield prefix + (k,), v
 
 
+def _linear_attention_keys(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A LinearAttention module (the one holding an `out_norm`) keeps its
+    output conv and norm in the reference's Sequential: to_out.0, to_out.1."""
+    prefixes = [k[:-len("out_norm.g")] for k in sd if k.endswith("out_norm.g")]
+    if not prefixes:
+        return sd
+    out = {}
+    for k, v in sd.items():
+        p = next((p for p in prefixes if k.startswith(p)), None)
+        if p is not None and k[len(p):].startswith("to_out."):
+            k = p + "to_out.0." + k[len(p) + len("to_out."):]
+        elif p is not None and k[len(p):] == "out_norm.g":
+            k = p + "to_out.1.g"
+        out[k] = v
+    return out
+
+
 def _from_paths(items) -> Dict[str, torch.Tensor]:
     sd = {}
     for path, value in items:
@@ -115,15 +137,23 @@ def _from_paths(items) -> Dict[str, torch.Tensor]:
         if key in sd:
             raise ValueError(f"two parameters map to {key}")
         sd[key] = torch.from_numpy(arr)
-    return sd
+    return _linear_attention_keys(sd)
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A JAX param tree (nested dict of arrays; a top-level 'params'
-    collection is unwrapped) -> torch state_dict (fp32, CPU)."""
-    if set(params) == {"params"}:
-        params = params["params"]
-    return _from_paths(_flatten(params))
+    """A JAX param tree (nested dict of arrays) -> torch state_dict (fp32,
+    CPU). A top-level 'params' collection is unwrapped; a 'batch_stats'
+    collection beside it becomes the BatchNorm buffers."""
+    if "params" not in params or not set(params) <= {"params", "batch_stats"}:
+        return _from_paths(_flatten(params))
+    sd = _from_paths(_flatten(params["params"]))
+    if "batch_stats" in params:
+        stats = _from_paths(_flatten(params["batch_stats"]))
+        sd.update(stats)
+        for k in stats:
+            if k.endswith(".running_mean"):
+                sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
 
 
 def strip_module_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
@@ -148,7 +178,7 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: orbax snapshot directories are not read by the port yet "
-            "(ROADMAP.md, Queue 1 item 5); save the params as .npz or .pth"
+            "(ROADMAP.md, Queue 1 item 3); save the params as .npz or .pth"
         )
     raise FileNotFoundError(path)
 

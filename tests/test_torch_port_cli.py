@@ -137,7 +137,15 @@ def test_cuda_request_never_falls_back(sid_tree, monkeypatch):
 
 
 def test_unported_networks_name_the_roadmap():
-    from noisediff_tpu_torch.models import define_network
+    """Every --net_name of the JAX registry builds (the UNet_PosEmbV2
+    family among them); an unknown name raises ValueError."""
+    from types import SimpleNamespace
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_network("UNet_PosEmbV2", None)
+    from noisediff_tpu_torch.models import PosEmbUNet, define_network
+
+    cfg = SimpleNamespace(dim=8, inp_dim=4, cond_dim=4)
+    for name in ("UNet_PosEmbV2", "UNet_PosEmbV2_NoPosition", "UNet_PosEmbV2_CameraCond"):
+        net = define_network(name, cfg)
+        assert isinstance(net, PosEmbUNet) and net.dim == 8
+    with pytest.raises(ValueError, match="UNetAttn is not found"):
+        define_network("UNetAttn", cfg)
