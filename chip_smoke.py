@@ -100,6 +100,20 @@ Every phase runs, in this order (any failure exits non-zero):
            launches of attn_tail / groupnorm_silu / dual_head an evaluation;
            DPM-2 through the kernels against the fp32 plain route on the card
            beside the bf16 plain route
+  fullframe_sharded  (after fullframe) the same frame split by rows over 2
+           spawned ranks (NCCL on 2 cards where the machine has them, else
+           gloo with both ranks on one card) and over 4 on a 4-card machine
+           (fullframe_sharded_rank): DPM-10's seconds a sample and ms an
+           evaluation beside fullframe's, each rank's peak memory and
+           launches (9 attn_tail, 44 gn_stats, 42 groupnorm_silu_apply, 1
+           dual_head an evaluation, no groupnorm_silu), the halo exchanges'
+           and all-reduces' count and time from a profile of one evaluation;
+           DPM-2 and DDIM-2 (ddim_head) in bf16 against one card from the
+           same x_T, and fp32 DPM-2 at 256 x 384 within 1e-4 rel L2 of one
+           card. The kernels phase checks gn_stats and the groupnorm_silu
+           apply entry at every shard shape (712 x 2128 x 48 .. 44 x 266 x
+           384). Its launches go into the kernels line
+           (launches_fullframe_sharded)
   denoise_check  one LSID step from make_denoising_train_step (flip and
            SNA off, B 2, 256^2) on the card against the CPU: fp32 on both
            within DENOISE_FP32_LOSS / DENOISE_FP32_GRAD, bf16 on the card
@@ -434,6 +448,10 @@ def phase_kernels(seed: int):
     torch.cuda.empty_cache()
     for name, rows in kernels_fullframe(randn).items():
         results[name] += rows
+    torch.cuda.empty_cache()
+    sharded = kernels_sharded(randn)
+    results["gn_stats"] += sharded["gn_stats"]
+    results["groupnorm_silu_apply"] = sharded["groupnorm_silu_apply"]
     results.update(kernels_ddim(randn))
     results.update(kernels_wgrad(randn, seed))
     results.update(kernels_attention(randn))
@@ -1065,6 +1083,102 @@ def kernels_fullframe(randn):
         bnd = sum(r["bound_ms"] * r["fullframe_calls"] for r in rs)
         log(f"  {name}: {dev:.4f} ms of the card's clock per full-frame evaluation against a "
             f"bound of {bnd:.4f} ({dev / bnd:.2f}x)")
+    return rows
+
+
+# the spatial axis: the full frame's rows over 2 and 4 ranks (one process a
+# card; two ranks share one card where the machine has one)
+SHARDED_WORLDS = (2, 4)
+# GroupNorms a sharded evaluation runs at each stage: all 44 take the
+# gn_stats sums (GN_PER_STEP's count), the 42 of the kernel's route the
+# apply kernel (the per-pixel-FiLM two apply in plain torch)
+APPLY_PER_EVAL = {st: sum(n for s, _, _, n in GN_PER_EVAL if s == st) for st in range(4)}
+# the fp32 sharded-against-one-card check: a reduced frame, DPM-2, within
+# fp32 rounding through two evaluations (an off-by-one halo row moves the
+# seams' rows by the size of the signal)
+SHARDED_FP32_FRAME = (256, 384)
+SHARDED_FP32_REL = 1e-4
+
+
+def sharded_shapes():
+    """(world, shard rows, stage, (h, w, c)): every shard shape of the full
+    frame's four stages over SHARDED_WORLDS ranks, each distinct shard
+    height once (712 over 2; 360 and 352 over 4)."""
+    from noisediff_tpu_torch.parallel.mesh import split_rows
+
+    return [(world, rows, st, (rows >> st, FULLFRAME[1] >> st, DIM << st))
+            for world in SHARDED_WORLDS
+            for rows in sorted(set(split_rows(FULLFRAME[0], world)), reverse=True)
+            for st in range(4)]
+
+
+def kernels_sharded(randn):
+    """The spatially sharded GroupNorm's two kernels at every shard shape
+    (`sharded_shapes`: 712 x 2128 x 48 .. 44 x 266 x 384): gn_stats (the
+    shard's sums, which the model all-reduces) and groupnorm_silu_apply
+    (silu(x a + bb) from given fp32 coefficients) against their plain
+    versions, the apply kernel one launch a call and bit-equal across two
+    calls (and whether to the plain version), per call and on the card's
+    clock beside the bound. Rows carry `sharded_calls`, the calls of one
+    sharded full-frame evaluation on a rank of 2 (0 for the 4-rank shapes);
+    the apply rows have it as `calls` too (its `ms` is per such
+    evaluation), the gn_stats rows calls 0 (its `ms` is per training step)."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import (
+        gn_stats, groupnorm_silu_apply, reference_gn_stats, reference_groupnorm_silu_apply)
+
+    rows = {"groupnorm_silu_apply": [], "gn_stats": []}
+    for world, n, st, (h, w, c) in sharded_shapes():
+        first = world == SHARDED_WORLDS[0]
+        x = randn(1, h, w, c, scale=1.5, dtype=torch.bfloat16) + 0.3
+        got, want = gn_stats(x), reference_gn_stats(x)
+        err = max(compare_scaled("gn_stats", a, b, SUM_RTOL) for a, b in zip(got, want))
+        ms = time_ms(lambda: gn_stats(x), reps=5)
+        dev_ms = time_device_ms(lambda: gn_stats(x), n=5)
+        plain = time_ms(lambda: reference_gn_stats(x), reps=2, warmup=1)
+        b_ms, b_by = bound(nbytes(x) + 2 * c * 4, 3 * x.numel(), PEAK_FP32_FLOPS)
+        rows["gn_stats"].append(dict(shape=[1, h, w, c], world=world, calls=0,
+                                     sharded_calls=GN_PER_STEP[st] if first else 0, ms=ms,
+                                     device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                                     bound_by=b_by, max_abs_err=err))
+        log(f"  sharded gn_stats 1x{h}x{w}x{c} (a shard of {n} rows over {world}): {ms:.4f} ms, "
+            f"dev {dev_ms:.4f} ({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; plain "
+            f"{plain:.4f}), max abs err {err:.3g}")
+
+        xg = x.view(1, h * w, c)
+        a, bb = 1.0 + 0.2 * randn(1, c), 0.3 * randn(1, c)
+        n0 = groupnorm_silu_apply.launches
+        got = groupnorm_silu_apply(xg, a, bb)
+        if groupnorm_silu_apply.launches != n0 + 1:
+            raise AssertionError(f"groupnorm_silu_apply 1x{h * w}x{c}: not one launch a call")
+        want = reference_groupnorm_silu_apply(xg, a, bb)
+        err = compare("groupnorm_silu", got, want)
+        equal = bool(torch.equal(got, want))
+        if not torch.equal(got, groupnorm_silu_apply(xg, a, bb)):
+            raise AssertionError(f"groupnorm_silu_apply 1x{h * w}x{c}: two calls differ")
+        del got, want
+        ms = time_ms(lambda: groupnorm_silu_apply(xg, a, bb), reps=5)
+        dev_ms = time_device_ms(lambda: groupnorm_silu_apply(xg, a, bb), n=5)
+        plain = time_ms(lambda: reference_groupnorm_silu_apply(xg, a, bb), reps=2, warmup=1)
+        b_ms, b_by = bound(2 * nbytes(xg) + 2 * c * 4, 5 * xg.numel(), PEAK_FP32_FLOPS)
+        calls = APPLY_PER_EVAL[st] if first else 0
+        rows["groupnorm_silu_apply"].append(dict(
+            shape=[1, h * w, c], world=world, calls=calls, sharded_calls=calls, ms=ms,
+            device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            equal_to_plain=equal))
+        log(f"  groupnorm_silu_apply 1x{h * w}x{c} (a shard of {n} rows over {world}): "
+            f"{ms:.4f} ms, dev {dev_ms:.4f} ({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; "
+            f"plain {plain:.4f}), max abs err {err:.3g}, "
+            f"{'bit-equal to the plain version' if equal else 'not bit-equal to the plain version'}"
+            ", one launch, bit-equal across two calls")
+        del x, xg
+        torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        dev = sum(r["device_ms"] * r["sharded_calls"] for r in rs)
+        bnd = sum(r["bound_ms"] * r["sharded_calls"] for r in rs)
+        log(f"  {name}: {dev:.4f} ms of the card's clock per sharded full-frame evaluation (a "
+            f"rank of {SHARDED_WORLDS[0]}) against a bound of {bnd:.4f} ({dev / bnd:.2f}x)")
     return rows
 
 
@@ -2545,10 +2659,17 @@ def phase_fullframe(seed: int, ckpt: str, sid: str):
                                  f"{per_eval} per evaluation x {FULLFRAME_STEPS}")
     if any(v for k, v in counts.items() if k not in want):
         raise AssertionError(f"fullframe: launches {counts}")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:  # a sample, per evaluation
+        generate_full_frame(gd, clean, idx, sampling_timesteps=FULLFRAME_STEPS, init_noise=x)
+        torch.cuda.synchronize()
+    by_name = _device_ms_by_name(prof, FULLFRAME_STEPS)
+    busy = sum(by_name.values())
     log(f"  DPM-{FULLFRAME_STEPS} over 1x{FULLFRAME[0]}x{FULLFRAME[1]}x4: {secs:.4f} s a sample "
         f"(synchronised), {secs * 1e3 / FULLFRAME_STEPS:.4f} ms an evaluation; std of the "
         f"noise {float(out.std()):.5f}; peak device memory {peak / 2 ** 30:.3f} GiB; launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }; device busy {busy:.4f} ms an evaluation "
+        f"(a profiled DPM-{FULLFRAME_STEPS} sample over {FULLFRAME_STEPS})")
 
     # DPM-2 through the kernels (bf16) against the plain route in fp32, with
     # the plain route in bf16 beside them: the kernels' sample must be as
@@ -2581,7 +2702,8 @@ def phase_fullframe(seed: int, ckpt: str, sid: str):
         raise AssertionError(f"fullframe: the kernels' DPM-2 sample is {r_kern} from fp32, over "
                              f"{limit}")
     return dict(seconds=secs, eval_ms=secs * 1e3 / FULLFRAME_STEPS, peak_bytes=peak,
-                counts=counts, rel_kernels_fp32=r_kern, rel_plain16_fp32=r_plain,
+                busy_ms=busy, busy_by_class=_by_class(by_name), counts=counts,
+                rel_kernels_fp32=r_kern, rel_plain16_fp32=r_plain,
                 rel_kernels_plain16=r_kp)
 
 
@@ -2655,14 +2777,18 @@ def spawn_ranks(job: dict, world: int, workdir: str, launcher_env: bool = True):
 def rank_main() -> int:
     """One process that chip_smoke spawned (spawn_ranks): the job in
     CHIP_SMOKE_JOB. "dist_step": the canonical training step on this rank's
-    rows of the global batch, under DDP over job["backend"]; "cli": one of
-    the port's CLIs' main. Writes its result to job["result"] % rank."""
+    rows of the global batch, under DDP over job["backend"];
+    "fullframe_sharded": this rank's rows of the full frame
+    (fullframe_sharded_rank); "cli": one of the port's CLIs' main. Writes
+    its result to job["result"] % rank."""
     import torch
 
     job = json.loads(os.environ["CHIP_SMOKE_JOB"])
     rank = int(os.environ.get("RANK", "0"))
     if job["job"] == "dist_step":
         out = dist_step_rank(job)
+    elif job["job"] == "fullframe_sharded":
+        out = fullframe_sharded_rank(job)
     else:
         from noisediff_tpu_torch.cli import test_diffusion, train_denoising, train_diffusion
         from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -2682,6 +2808,148 @@ def rank_main() -> int:
     with open(job["result"] % rank, "w") as f:
         json.dump(out, f)
     return 0
+
+
+def _span_stats(prof, n: int):
+    """{span: (count, host ms)} per evaluation of the spatial axis's
+    profiler spans (mesh.HALO_SPAN, mesh.GN_SPAN) in a profile of n
+    evaluations, and the NCCL kernels' device ms, where there are any."""
+    from noisediff_tpu_torch.parallel import mesh
+
+    out = {}
+    for e in prof.key_averages():
+        if e.key in (mesh.HALO_SPAN, mesh.GN_SPAN) and not str(e.device_type).endswith("CUDA"):
+            out[e.key] = {"count": e.count / n, "host_ms": e.cpu_time_total / 1e3 / n}
+    by_name = _device_ms_by_name(prof, n)
+    out["nccl_device_ms"] = sum(v for k, v in by_name.items() if "nccl" in k.lower())
+    # the rank's own device work: every kernel and copy but NCCL's
+    own = {k: v for k, v in by_name.items() if "nccl" not in k.lower()}
+    out["compute_device_ms"] = sum(own.values())
+    out["by_class"] = _by_class(own)
+    return out
+
+
+def _by_class(by_name):
+    """{kernel class (`_category`): device ms} of a {kernel name: ms} map."""
+    out = {}
+    for k, v in by_name.items():
+        out[_category(k)] = out.get(_category(k), 0.0) + v
+    return out
+
+
+def _collective_host_us(shard, dev, n: int = 50):
+    """Host microseconds a call of the spatial axis's two collectives alone,
+    at the full frame's stage-0 shard (a 1-row halo of 2128 x 48 bf16; a
+    (2, 1, 384) fp32 sum), n calls back to back then a synchronise: what
+    each of an evaluation's 50 halo exchanges and 44 all-reduces costs the
+    host besides the compute."""
+    import torch
+
+    from noisediff_tpu_torch.parallel import mesh
+
+    x = torch.zeros((1, DIM, 8, FULLFRAME[1]), device=dev, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    s = torch.zeros((2, 1, 384), device=dev)
+    out = {}
+    for name, fn in (("halo_rows", lambda: mesh.halo_rows(x, 1, shard)),
+                     ("all_reduce_sum", lambda: mesh.all_reduce_sum(s))):
+        fn()
+        torch.cuda.synchronize(dev)
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(dev)
+        out[name] = (time.perf_counter() - t0) * 1e6 / n
+    return out
+
+
+def fullframe_sharded_rank(job):
+    """The body of one fullframe_sharded rank: the main phase's dim-48
+    weights (bf16, kernels) over the evaluation tree's first clean frame,
+    split by rows over the process group (job["backend"]) through
+    generate_full_frame: a DPM-1 warm-up; DPM-10 timed between barriers
+    (synchronised) with its launches and this rank's peak memory; a DPM-10
+    sample under torch.profiler (the halo exchanges' and the all-reduces'
+    spans, the device time by class, an evaluation's share); the
+    collectives' host time alone; DPM-2 and DDIM-2 from the x_T of phase_fullframe,
+    then fp32 DPM-2 over SHARDED_FP32_FRAME (rank 0 saves the three
+    frames to job["out"] % name)."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.cli.common import set_precision_flags
+    from noisediff_tpu_torch.data.datasets import iso_ratio_index
+    from noisediff_tpu_torch.data.raw_host import load_packed_frame
+    from noisediff_tpu_torch.diffusion.fullframe import generate_full_frame
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+    from noisediff_tpu_torch.parallel import mesh
+    from noisediff_tpu_torch.weights import load_into
+
+    set_precision_flags()
+    shard, dev = mesh.setup(torch.device("cuda"), job["backend"])
+    clean = load_packed_frame(job["frame"])
+    idx = iso_ratio_index(800, EVAL_RATIO)
+
+    def diffusion(dtype):
+        model = NoiseDiffNet(dim=DIM, dtype=dtype)
+        load_into(model, job["ckpt"])
+        model = model.to(dev, memory_format=torch.channels_last).eval()
+        return GaussianDiffusion(model, make_schedule("sigmoid2", 1000),
+                                 image_size=FULLFRAME[0], device=dev)
+
+    def run(gd, frame, steps, x, sampler="dpm"):
+        return generate_full_frame(gd, frame, idx, sampler=sampler, sampling_timesteps=steps,
+                                   init_noise=x)
+
+    gd = diffusion(torch.bfloat16)
+    x = torch.randn((1, *FULLFRAME, 4), generator=torch.Generator(device=dev).manual_seed(
+        job["seed"]), device=dev)
+    run(gd, clean, 1, x)  # warm-up
+    torch.cuda.synchronize(dev)
+    mesh.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    frame = run(gd, clean, FULLFRAME_STEPS, x)
+    torch.cuda.synchronize(dev)
+    mesh.barrier()
+    secs = time.perf_counter() - t0
+    out = dict(rank=shard.rank, world=shard.world, backend=torch.distributed.get_backend(),
+               device=str(dev), bounds=mesh.SpatialShard(shard.rank, shard.world,
+                                                         FULLFRAME[0]).bounds,
+               seconds=secs, launches=launch_counts(),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               frame_ok=(frame is None if shard.rank else
+                         frame.shape == (*FULLFRAME, 4) and bool(np.isfinite(frame).all())))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:  # a sample, per evaluation
+        run(gd, clean, FULLFRAME_STEPS, x)
+        torch.cuda.synchronize(dev)
+    out["spans"] = _span_stats(prof, FULLFRAME_STEPS)
+    out["collective_host_us"] = _collective_host_us(
+        mesh.SpatialShard(shard.rank, shard.world, FULLFRAME[0]), dev)
+    reset_launch_counts()
+    frames = {"dpm2": run(gd, clean, FULLFRAME_CHECK_STEPS, x)}
+    out["launches_dpm2"] = launch_counts()
+    reset_launch_counts()
+    frames["ddim2"] = run(gd, clean, FULLFRAME_CHECK_STEPS, x, sampler="ddim")
+    out["launches_ddim2"] = launch_counts()
+    del gd
+    torch.cuda.empty_cache()
+    fh, fw = SHARDED_FP32_FRAME
+    reset_launch_counts()
+    frames["fp32"] = run(diffusion(None), np.ascontiguousarray(clean[:fh, :fw]),
+                         FULLFRAME_CHECK_STEPS, x[:, :fh, :fw].contiguous())
+    out["launches_fp32"] = launch_counts()
+    if shard.rank == 0:
+        for name, f in frames.items():
+            np.save(job["out"] % name, f)
+    mesh.teardown()
+    return out
 
 
 def _train_model(seed: int, dev, dtype, remat=False):
@@ -2753,6 +3021,133 @@ def dist_step_rank(job):
                peak_bytes=torch.cuda.max_memory_allocated(dev), launches=launch_counts())
     mesh.teardown()
     return out
+
+
+def phase_fullframe_sharded(seed: int, ckpt: str, sid: str, workdir: str, one_card: dict):
+    """The full frame split by rows (generate_full_frame under a process
+    group): 2 ranks (NCCL on 2 cards where the machine has them, else gloo
+    with both ranks on one card), and 4 where it has 4 cards
+    (fullframe_sharded_rank). Checks each rank's launches (per evaluation:
+    9 attn_tail, 44 gn_stats, 42 groupnorm_silu_apply, 1 dual_head, no
+    groupnorm_silu: its statistics would see one shard; DDIM-2: 2
+    ddim_head; fp32: none), rank 0's frame, DPM-2 and DDIM-2 in bf16
+    against one card from the same x_T within SHARDED_BF16 (below), and fp32
+    DPM-2 over SHARDED_FP32_FRAME against one card within SHARDED_FP32_REL.
+    Reports seconds a DPM-10 sample and ms an evaluation beside one card's
+    (`one_card`, phase_fullframe's run in this call), each rank's peak
+    memory, and the halo exchanges' and all-reduces' count and host ms an
+    evaluation (with the NCCL kernels' device ms) from a profile."""
+    import numpy as np
+    import torch
+
+    from noisediff_tpu_torch.cli.common import set_precision_flags
+    from noisediff_tpu_torch.data.datasets import iso_ratio_index
+    from noisediff_tpu_torch.data.raw_host import load_packed_frame
+    from noisediff_tpu_torch.diffusion.fullframe import generate_full_frame
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+    from noisediff_tpu_torch.parallel import mesh
+    from noisediff_tpu_torch.weights import load_into
+
+    set_precision_flags()
+    dev = torch.device("cuda")
+    frame_path = os.path.join(sid, "Sony", "long", "00001_00_10s.ARW")
+    clean = load_packed_frame(frame_path)
+    idx = iso_ratio_index(800, EVAL_RATIO)
+
+    def diffusion(dtype):
+        model = NoiseDiffNet(dim=DIM, dtype=dtype)
+        load_into(model, ckpt)
+        model = model.to(dev, memory_format=torch.channels_last).eval()
+        return GaussianDiffusion(model, make_schedule("sigmoid2", 1000),
+                                 image_size=FULLFRAME[0], device=dev)
+
+    # one card, the ranks' inputs: phase_fullframe's x_T
+    x = torch.randn((1, *FULLFRAME, 4), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    fh, fw = SHARDED_FP32_FRAME
+    gd = diffusion(torch.bfloat16)
+    want = {s: generate_full_frame(gd, clean, idx, sampler=s, init_noise=x,
+                                   sampling_timesteps=FULLFRAME_CHECK_STEPS)
+            for s in ("dpm", "ddim")}
+    want["fp32"] = generate_full_frame(diffusion(None), np.ascontiguousarray(clean[:fh, :fw]), idx,
+                                       sampling_timesteps=FULLFRAME_CHECK_STEPS,
+                                       init_noise=x[:, :fh, :fw].contiguous())
+    del gd, x
+    torch.cuda.empty_cache()
+
+    # bf16 split against bf16 on one card: the two differ by where they
+    # round (each shard's conv carries its bias, the one-card route folds it
+    # into groupnorm_silu; the statistics sum in another order), the size
+    # of difference bf16 itself makes against fp32 on one card
+    # (phase_fullframe's kernels-against-fp32 rel L2); bound: twice that,
+    # plus train_check's 0.02
+    limit = 2 * one_card["rel_kernels_fp32"] + 0.02
+    cards = torch.cuda.device_count()
+    per_eval = {"fused_attn_tail": 9, "gn_stats": 44, "groupnorm_silu_apply": 42,
+                "fused_dual_head": 1}
+    runs = {}
+    for world in [w for w in SHARDED_WORLDS if w == 2 or cards >= w]:
+        backend = "nccl" if cards >= world else "gloo"
+        log(f"  {world} ranks over {min(world, cards)} card(s), {backend}"
+            + ("" if backend == "nccl" else " (NCCL refuses two ranks on one card)"))
+        job = dict(job="fullframe_sharded", name=world, seed=seed, ckpt=ckpt, frame=frame_path,
+                   backend=backend, result=os.path.join(workdir, f"ffs{world}.rank%d.json"),
+                   out=os.path.join(workdir, f"ffs{world}-%s.npy"))
+        ranks = spawn_ranks(job, world, workdir)
+        for r in ranks:
+            n = r["launches"]
+            want_n = {k: v * FULLFRAME_STEPS for k, v in per_eval.items()}
+            if {k: v for k, v in n.items() if v} != want_n:
+                raise AssertionError(f"fullframe_sharded {world}: rank {r['rank']} launched {n}, "
+                                     f"expected {want_n}")
+            if r["launches_ddim2"]["fused_ddim_head_update"] != FULLFRAME_CHECK_STEPS or \
+                    r["launches_ddim2"]["fused_dual_head"]:
+                raise AssertionError(f"fullframe_sharded {world}: DDIM-2 launches "
+                                     f"{r['launches_ddim2']}")
+            if any(r["launches_fp32"].values()):
+                raise AssertionError(f"fullframe_sharded {world}: fp32 launched "
+                                     f"{r['launches_fp32']}")
+            if not r["frame_ok"]:
+                raise AssertionError(f"fullframe_sharded {world}: rank {r['rank']}'s frame")
+        got = {k: np.load(job["out"] % k) for k in ("dpm2", "ddim2", "fp32")}
+        rel = {k: float(np.linalg.norm((got[k] - want[w]).astype(np.float64))
+                        / np.linalg.norm(want[w]))
+               for k, w in (("dpm2", "dpm"), ("ddim2", "ddim"), ("fp32", "fp32"))}
+        secs = max(r["seconds"] for r in ranks)
+        spans = ranks[0]["spans"]
+        log(f"  DPM-{FULLFRAME_STEPS} over 1x{FULLFRAME[0]}x{FULLFRAME[1]}x4 on {world} ranks: "
+            f"{secs:.4f} s a sample, {secs * 1e3 / FULLFRAME_STEPS:.4f} ms an evaluation "
+            f"(one card, this call: {one_card['seconds']:.4f} s, "
+            f"{one_card['eval_ms']:.4f} ms); rows "
+            f"{[r['bounds'] for r in ranks]}; peak memory a rank "
+            f"{[round(r['peak_bytes'] / 2 ** 30, 3) for r in ranks]} GiB (one card "
+            f"{one_card['peak_bytes'] / 2 ** 30:.3f})")
+        log(f"  an evaluation, rank 0's profile of a DPM-{FULLFRAME_STEPS} sample: "
+            + ", ".join(f"{k} {spans[k]['count']:g} calls {spans[k]['host_ms']:.4f} ms"
+                        for k in (mesh.HALO_SPAN, mesh.GN_SPAN) if k in spans)
+            + f"; on the card: its own work {spans['compute_device_ms']:.4f} ms (one card "
+            f"{one_card['busy_ms']:.4f}), NCCL's "
+            f"kernels {spans['nccl_device_ms']:.4f} ms; host us a call alone: "
+            f"{ {k: round(v, 1) for k, v in ranks[0]['collective_host_us'].items()} }")
+        log("  device ms an evaluation by class, rank 0 against one card: " + "; ".join(
+            f"{k} {spans['by_class'].get(k, 0.0):.4f} / {v:.4f}"
+            for k, v in sorted(one_card["busy_by_class"].items(), key=lambda kv: -kv[1])))
+        log(f"  against one card from the same x_T: DPM-2 bf16 rel L2 {rel['dpm2']:.4g}, "
+            f"DDIM-2 bf16 {rel['ddim2']:.4g} (bound {limit:.4g}); fp32 DPM-2 at "
+            f"{fh}x{fw} {rel['fp32']:.4g} (bound {SHARDED_FP32_REL:g})")
+        if rel["fp32"] > SHARDED_FP32_REL or max(rel["dpm2"], rel["ddim2"]) > limit:
+            raise AssertionError(f"fullframe_sharded {world}: {rel} over the bounds")
+        runs[world] = dict(backend=backend, seconds=secs, eval_ms=secs * 1e3 / FULLFRAME_STEPS,
+                           rel=rel, bound_bf16=limit, spans=spans,
+                           collective_host_us=[r["collective_host_us"] for r in ranks],
+                           peak_bytes=[r["peak_bytes"] for r in ranks],
+                           counts={k: sum(r["launches"][k] for r in ranks)
+                                   for k in ranks[0]["launches"]},
+                           ddim_counts={k: sum(r["launches_ddim2"][k] for r in ranks)
+                                        for k in ranks[0]["launches_ddim2"]})
+    return runs
 
 
 def reference_steps(seed: int):
@@ -3392,7 +3787,7 @@ def phase_posemb(seed: int, workdir: str):
 
 KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
                    "fused_dual_head", "fused_ddim_head_update", "gn_stats", "gn_grad_stats",
-                   "conv_wgrad", "flash_attention")
+                   "conv_wgrad", "flash_attention", "groupnorm_silu_apply")
 
 KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is summed over)
     "attn_tail": ("fused_attn_tail", "noisediff_tpu_torch/csrc/attn_tail.cu",
@@ -3414,6 +3809,11 @@ KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is 
                    "noisediff_tpu/ops/pallas/conv_wgrad.py:119", "wgrad-route training step"),
     "flash_attention": ("flash_attention", "noisediff_tpu_torch/csrc/flash_attention.cu",
                         "noisediff_tpu/ops/pallas/flash_attention.py:68", "Attention call"),
+    # the apply phase of row 3's TPU kernel, launched with the coefficients
+    # of the statistics all-reduced over the ranks
+    "groupnorm_silu_apply": ("groupnorm_silu_apply", "noisediff_tpu_torch/csrc/groupnorm_silu.cu",
+                             "noisediff_tpu/ops/pallas/groupnorm_silu.py:105",
+                             "sharded full-frame evaluation (a rank of 2)"),
 }
 
 
@@ -3445,6 +3845,11 @@ def kernels_line(results, launches):
         ff = [r for r in rows if r.get("fullframe_calls")]
         if ff:
             device.update({f"fullframe_{k}": sum(r[k] * r["fullframe_calls"] for r in ff)
+                           for k in ("device_ms", "plain_ms", "bound_ms")})
+        # one sharded full-frame evaluation on a rank of 2, where it has such rows
+        sh = [r for r in rows if r.get("sharded_calls")]
+        if sh:
+            device.update({f"sharded_{k}": sum(r[k] * r["sharded_calls"] for r in sh)
                            for k in ("device_ms", "plain_ms", "bound_ms")})
         # the bound of the shapes that carry most of the bound time
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "bytes")
@@ -3546,6 +3951,10 @@ def main(argv=None) -> int:
             workdir, "out", "ISO800_Ratio250", "npy", "generated"))
         log("[fullframe] full-frame generation, DPM-10 over the whole packed SID frame")
         fullframe = phase_fullframe(args.seed, ckpt, evaluation["sid"])
+        log("[fullframe_sharded] the full frame split by rows over 2 ranks (and 4 on 4 cards)")
+        t0 = time.time()
+        sharded = phase_fullframe_sharded(args.seed, ckpt, evaluation["sid"], workdir, fullframe)
+        log(f"  fullframe_sharded phase {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("[denoise_check] one LSID training step, card vs CPU")
@@ -3596,11 +4005,14 @@ def main(argv=None) -> int:
 
     gc, dc, tc, steps = gen["counts"], ddim["counts"], train["counts"], train["steps"]
     fc, pc = fullframe["counts"], posemb["counts"]
+    # the full frame on 2 ranks, both ranks' counts
+    sc, sdc = sharded[2]["counts"], sharded[2]["ddim_counts"]
     launches = {}
     for name in ("attn_tail", "groupnorm_silu", "dual_head", "attn_tail_bwd", "gn_stats",
                  "gn_grad_stats"):
         w = KERNEL_META[name][0]
-        launches[name] = (gc[w] + dc[w] + tc[w] + fc[w] + pc[w], {
+        launches[name] = (gc[w] + dc[w] + tc[w] + fc[w] + pc[w] + sc[w], {
+            "launches_fullframe_sharded": sc[w],
             # the UNet_PosEmbV2 family's CLI runs (posemb phase)
             "launches_posemb": pc[w],
             "launches_generation": gc[w], "launches_per_batch": gc[w] / N_BATCHES,
@@ -3613,8 +4025,15 @@ def main(argv=None) -> int:
             "launches_dist_gen": sum(r["launches"][w] for r in dist_gen["ranks"]),
             "launches_dist_train_world1": dist_train["world1"][0]["launches"][w],
             "launches_remat_step": remat["launches"][w]})
-    n = ddim["counts"]["fused_ddim_head_update"]
-    launches["ddim_head"] = (n, {"launches_per_batch": n / N_BATCHES})
+    n, n_sh = ddim["counts"]["fused_ddim_head_update"], sdc["fused_ddim_head_update"]
+    launches["ddim_head"] = (n + n_sh, {"launches_per_batch": n / N_BATCHES,
+                                        "launches_fullframe_sharded_ddim": n_sh})
+    n = sc["groupnorm_silu_apply"]
+    launches["groupnorm_silu_apply"] = (n, {
+        "launches_per_rank_per_eval": n / (2 * FULLFRAME_STEPS),
+        "launches_fullframe_sharded_ddim": sdc["groupnorm_silu_apply"],
+        "launches_fullframe_sharded_4": sharded[4]["counts"]["groupnorm_silu_apply"]
+        if 4 in sharded else None})
     n, n_pos = wgrad["counts"]["conv_wgrad"], pc["conv_wgrad"]
     launches["conv_wgrad"] = (n + n_pos, {"launches_per_step": n / wgrad["steps"],
                                           "launches_posemb": n_pos})

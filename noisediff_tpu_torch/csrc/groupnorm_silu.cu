@@ -58,6 +58,18 @@
 // few microseconds (PERF.md).
 // A barrier's wait is bounded (10 s on the global timer, then a trap), so a
 // fault shows as a launch error, not a hung card.
+//
+// Second entry, nd_groupnorm_silu_apply: y = silu(x * a + bb) from given
+// fp32 (B, C) coefficients, the apply phase alone. The spatially sharded
+// GroupNorm (models/blocks.GroupNorm under parallel/mesh.activate) takes
+// its statistics from gn_stats sums all-reduced over the ranks that hold
+// the frame's rows, so the coefficients come from outside this call.
+// Bound: memory, x read once and y written once (at a 712 x 2128 x 48
+// shard 2 x 145 MB, 87 us at 3.35 TB/s). Design: a grid-stride loop over
+// 16-byte pieces (8 channels), a few blocks per SM, each piece's 8
+// coefficient pairs read through the read-only cache (B x C x 8 bytes in
+// all). The product and the sum are rounded one at a time and SiLU is
+// v / (1 + expf(-v)), as the plain version computes them on the card.
 #include "common.cuh"
 
 namespace {
@@ -484,7 +496,70 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) groupnorm_silu_fused(const GnA
   }
 }
 
+constexpr int APPLY_UNROLL = 2;  // pieces in flight per thread
+
+__device__ __forceinline__ uint4 apply_exact(const uint4 raw, const float* a, const float* bb) {
+  float f[VEC];
+  unpack8(raw, f);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const float v = __fadd_rn(__fmul_rn(f[k], a[k]), bb[k]);
+    f[k] = v / (1.0f + expf(-v));
+  }
+  return pack8(f);
+}
+
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  out[0] = lo.x; out[1] = lo.y; out[2] = lo.z; out[3] = lo.w;
+  out[4] = hi.x; out[5] = hi.y; out[6] = hi.z; out[7] = hi.w;
+}
+
+// x, y: (B, N, C) bf16 as 16-byte pieces; a, bb: (B, C) fp32. Piece p of
+// the whole tensor is sample p / (N C / 8), channels 8 (p % (C / 8)) ..
+__global__ void __launch_bounds__(256) groupnorm_silu_apply(const uint4* __restrict__ x,
+                                                            const float* __restrict__ a,
+                                                            const float* __restrict__ bb,
+                                                            uint4* __restrict__ y,
+                                                            long long per_sample, int lanes,
+                                                            long long total) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long p0 = (long long)blockIdx.x * blockDim.x + threadIdx.x; p0 < total;
+       p0 += APPLY_UNROLL * stride) {
+    uint4 v[APPLY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < APPLY_UNROLL; ++u) {
+      const long long p = p0 + u * stride;
+      if (p < total) v[u] = __ldg(x + p);
+    }
+#pragma unroll
+    for (int u = 0; u < APPLY_UNROLL; ++u) {
+      const long long p = p0 + u * stride;
+      if (p < total) {
+        const long long c0 = (p / per_sample) * lanes * VEC + (p % lanes) * VEC;
+        float ca[VEC], cb[VEC];
+        load8(a + c0, ca);
+        load8(bb + c0, cb);
+        y[p] = apply_exact(v[u], ca, cb);
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// y = silu(x * a + bb): x, y (B, N, C) bf16, a, bb (B, C) fp32, all
+// 16-byte aligned, C % 8 == 0; `grid` blocks of 256 threads.
+ND_EXPORT int nd_groupnorm_silu_apply(const void* x, const void* a, const void* bb, void* y,
+                                      int B, long long N, int C, int grid, void* stream) {
+  if (C % VEC || B < 1 || N < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  const int lanes = C / VEC;
+  groupnorm_silu_apply<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<const float*>(a), static_cast<const float*>(bb),
+      static_cast<uint4*>(y), N * lanes, lanes, (long long)B * N * lanes);
+  return (int)cudaGetLastError();
+}
 
 // The largest dynamic shared memory a block may take on the current card
 // (the plan's budget).

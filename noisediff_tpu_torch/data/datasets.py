@@ -24,15 +24,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..ops.coords import crop_coord_patch
-from . import manifest
+from . import manifest, native
 from .iso_ratio_mapping import COMBINATION_MAPPING
 from .raw_host import (
     SCALE,
     Darkshading,
     PackedFrameCache,
-    load_packed,
     load_packed_frame,
-    make_noise_pair,
     np_pack_bayer,
     np_unpack_bayer,
     open_bayer,
@@ -137,7 +135,8 @@ class SonyTrainDataset(_EpochSeeded):
         ih, iw = bayer_in.shape[0] // 2, bayer_in.shape[1] // 2
         x, y = self._crop(rng, ih, iw)
         cs = self.crop_size
-        noisy, clean, noise = make_noise_pair(bayer_in, bayer_gt, y, x, cs, cs, float(e.ratio))
+        noisy, clean, noise = native.make_noise_pair(bayer_in, bayer_gt, y, x, cs, cs,
+                                                     float(e.ratio))
         coord = crop_coord_patch(ih, iw, y, x, cs, cs)
         return {
             "noise": noise,
@@ -199,7 +198,7 @@ class NoiseImageGenerationDataset(_EpochSeeded):
 
         # the packed frame size comes from the first clean frame
         if frame_hw is None and self.gt_list:
-            h, w, _ = load_packed(self.gt_list[0]).shape
+            h, w, _ = load_packed_frame(self.gt_list[0]).shape
             frame_hw = (h, w)
         self.frame_hw = frame_hw or (manifest.SID_PACKED_H, manifest.SID_PACKED_W)
         self.coord_list = manifest.patch_grid(*self.frame_hw, ps=crop_size)
@@ -212,7 +211,7 @@ class NoiseImageGenerationDataset(_EpochSeeded):
         gt_path = self.gt_list[idx // self.patch_per_img]
         x, y = self.coord_list[idx % self.patch_per_img]
         cs = self.crop_size
-        gt_norm = load_packed(gt_path)
+        gt_norm = load_packed_frame(gt_path)
         ih, iw, _ = gt_norm.shape
         coord = crop_coord_patch(ih, iw, y, x, cs, cs)
         return {
@@ -245,7 +244,7 @@ class GenDarkFrameDataset(_EpochSeeded):
                 self.entries.append(e)
         if frame_hw is None and self.entries:
             gt = os.path.join(paths.data_folder, self.entries[0].gt_path)
-            h, w, _ = load_packed(gt).shape
+            h, w, _ = load_packed_frame(gt).shape
             frame_hw = (h, w)
         self.frame_hw = frame_hw or (manifest.SID_PACKED_H, manifest.SID_PACKED_W)
         self.coord_list = manifest.patch_grid(*self.frame_hw, ps=crop_size)

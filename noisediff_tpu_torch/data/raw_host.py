@@ -2,12 +2,14 @@
 the packed-frame cache, the PMN dark-shading resources and the EXIF and
 raw-file helpers of the evaluation.
 
-Port of noisediff_tpu/data/raw_host.py and of `make_noise_pair`
-(noisediff_tpu/data/native.py:94-125). A `.npy` sidecar next to an `.ARW`
+Port of noisediff_tpu/data/raw_host.py. A `.npy` sidecar next to an `.ARW`
 path is read in place of the raw file, and a `.meta.json` sidecar in place
 of its EXIF (how test and smoke trees are made without LibRaw); rawpy and
-exifread are imported only when a real raw file has to be read. Packing is
-numpy (raw_util.py:17-35).
+exifread are imported only when a real raw file has to be read. The frames
+the datasets and the CLIs read are packed by the host library
+(`data/native.py`, `load_packed_frame`), as the JAX package's are;
+`pack_frame` and `make_noise_pair` here are the library's plain numpy
+versions (raw_util.py:17-35), which the tests hold it against.
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-BLACK_LEVEL = 512.0
-WHITE_POINT = 16383.0
+from . import native
+from .native import BLACK_LEVEL, WHITE_POINT
+
 SCALE = WHITE_POINT - BLACK_LEVEL
 
 
@@ -163,17 +166,12 @@ def vis_raw_file(raw_file, save_path: str, save_file: bool = True) -> np.ndarray
     return rgb
 
 
-def load_packed(path: str, rescale: bool = True) -> np.ndarray:
-    """decode + pack_raw in one host call."""
-    return np_pack_raw(decode_bayer(path), rescale=rescale)
-
-
 def pack_frame(bayer: np.ndarray, rescale: bool = True, black: float = BLACK_LEVEL,
                white: float = WHITE_POINT) -> np.ndarray:
-    """A Bayer mosaic (a frame or a crop) packed as the JAX package's native
-    library packs it (csrc/noisediff_host.cpp, what its `load_packed` and
-    `make_noise_pair` run): the mosaic as uint16, (v - black) clamped at 0,
-    times the float32 reciprocal of (white - black) when `rescale`."""
+    """Plain version of `native.pack_raw`: a Bayer mosaic (a frame or a
+    crop) packed as the host library packs it (csrc/host/noisediff_host.cpp):
+    the mosaic as uint16, (v - black) clamped at 0, times the float32
+    reciprocal of (white - black) when `rescale`."""
     f32 = np.float32
     v = np_pack_bayer(np.asarray(bayer).astype(np.uint16, copy=False).astype(f32)) - f32(black)
     v = np.maximum(v, f32(0.0))
@@ -185,14 +183,15 @@ def pack_frame(bayer: np.ndarray, rescale: bool = True, black: float = BLACK_LEV
 def make_noise_pair(bayer_in: np.ndarray, bayer_gt: np.ndarray, cy: int, cx: int, ch: int,
                     cw: int, ratio: float, black: float = BLACK_LEVEL,
                     white: float = WHITE_POINT):
-    """(noisy, clean, noise) float32 (ch, cw, 4) crops at packed (cy, cx):
-    the SonyTrainDataset item pipeline (reference dataset.py:119-128).
+    """Plain version of `native.make_noise_pair`: (noisy, clean, noise)
+    float32 (ch, cw, 4) crops at packed (cy, cx), the SonyTrainDataset item
+    pipeline (reference dataset.py:119-128).
 
-    Crops the Bayer region first and packs only the crop, as the JAX
-    package's native library does; every step is per pixel, so the numbers
-    equal pack-then-crop. The arithmetic is the native kernel's, in
-    float32 (`pack_frame`); the noisy frame times ratio clipped to [0, 1];
-    noise = noisy - clean."""
+    Crops the Bayer region first and packs only the crop, as the host
+    library does; every step is per pixel, so the numbers equal
+    pack-then-crop. The arithmetic is the library's, in float32
+    (`pack_frame`); the noisy frame times ratio clipped to [0, 1]; noise =
+    noisy - clean."""
     f32 = np.float32
 
     def packed_crop(bayer):
@@ -205,9 +204,10 @@ def make_noise_pair(bayer_in: np.ndarray, bayer_gt: np.ndarray, cy: int, cx: int
 
 
 def load_packed_frame(path: str, rescale: bool = True) -> np.ndarray:
-    """decode + `pack_frame`: the denoising datasets' frames, equal to the
-    JAX package's."""
-    return pack_frame(decode_bayer(path), rescale=rescale)
+    """A raw file's packed frame through the host library
+    (`native.pack_raw`, the JAX package's `load_packed`): equal to the JAX
+    package's frames, and to `pack_frame` of the decoded mosaic."""
+    return native.pack_raw(open_bayer(path), rescale=rescale)
 
 
 class PackedFrameCache:

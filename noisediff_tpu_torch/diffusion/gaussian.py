@@ -9,7 +9,9 @@ sample carry is fp32 whatever the model's compute dtype. Randomness comes
 from a caller's `torch.Generator`; the JAX package's random streams cannot
 be reproduced, so `init_noise` lets a caller (and the tests) fix x_T,
 `p_losses` / `loss` take the noise and the timesteps from the caller, and
-`interpolate` its draws.
+`interpolate` its draws. Under a spatial shard (parallel/mesh.activate)
+the samplers' shape is this rank's rows of the frame, and each draw is
+made for the whole frame and sliced (`_randn`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from ..cli.common import resolve_device
 from ..ops.kernels.ddim_head import (
     ddim_step_scalars, fused_ddim_head_update, reference_ddim_head_update)
 from ..ops.schedules import DiffusionSchedule, make_schedule
+from ..parallel import mesh
 
 Condition = Optional[Dict[str, torch.Tensor]]
 ModelFn = Callable[[torch.Tensor, torch.Tensor, Condition], torch.Tensor]
@@ -246,10 +249,23 @@ class GaussianDiffusion:
             return (*model.trunk(x, t, condition), model.head_weights())
         return trunk_fn
 
+    def _randn(self, shape, generator) -> torch.Tensor:
+        """A standard normal fp32 draw of `shape` on the diffusion's device.
+        Under a spatial shard, `shape` (B, rows, W, C) holds this rank's
+        rows: the draw is made for the whole frame and those rows kept, so
+        every rank count draws what one process draws."""
+        shard = mesh.spatial()
+        if shard is None:
+            return torch.randn(shape, generator=generator, device=self.device,
+                               dtype=torch.float32)
+        whole = (shape[0], shard.height, *shape[2:])
+        return shard.rows(torch.randn(whole, generator=generator, device=self.device,
+                                      dtype=torch.float32))
+
     def _init(self, shape, generator, init_noise) -> torch.Tensor:
         if init_noise is not None:
             return init_noise.to(device=self.device, dtype=torch.float32)
-        return torch.randn(shape, generator=generator, device=self.device, dtype=torch.float32)
+        return self._randn(shape, generator)
 
     def _timesteps(self, t: int, batch: int) -> torch.Tensor:
         return torch.full((batch,), int(t), dtype=torch.long, device=self.device)
@@ -268,7 +284,7 @@ class GaussianDiffusion:
             mean, _, log_var = self.q_posterior(x_start, x, tb)
             x = mean
             if t > 0:  # no noise at the last step (:371)
-                noise = torch.randn(shape, generator=generator, device=self.device)
+                noise = self._randn(shape, generator)
                 x = x + torch.exp(0.5 * log_var) * noise
         return self.unnormalize(x)
 
@@ -309,8 +325,7 @@ class GaussianDiffusion:
             c = np.sqrt(np.maximum(one - alpha_next - sigma ** 2, np.float32(0)))
             tb = self._timesteps(t, shape[0])
             # eta = 0 (the reference default) draws no noise
-            noise = (torch.randn(shape, generator=generator, device=self.device)
-                     if float(eta) != 0.0 else None)
+            noise = self._randn(shape, generator) if float(eta) != 0.0 else None
             if trunk_fn is not None:
                 h, shot, shot_res, head = trunk_fn(x, tb, condition)
                 x = tail(h, shot, shot_res, x, noise, *head,

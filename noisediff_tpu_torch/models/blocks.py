@@ -21,6 +21,12 @@ card as on the CPU; a bf16 block runs its kernel where its channel width is
 one the kernel takes. The kernels take every pixel count. A wrapper given
 a CUDA tensor launches its kernel or raises; nothing falls back per call.
 
+Under a spatial shard (`parallel.mesh.activate`, the frame's rows split
+over the ranks of a process group) every conv wider than 1x1 takes its
+halo rows from the neighbouring ranks before it convolves, and every
+GroupNorm all-reduces its statistics over the ranks; the per-pixel blocks
+(the attention tail, the 1x1 convs, the heads) need nothing.
+
 Stride-1 SAME convolutions can take their weight gradient from the
 conv_wgrad kernel instead of cuDNN, under the JAX package's variables
 (`wgrad_kernel_on`), where the input is bf16 and the widths are ones the
@@ -40,12 +46,14 @@ from torch import nn
 
 from ..ops.kernels import (
     conv_wgrad, flash_attention, fused_attn_tail, fused_groupnorm_film_silu, gn_grad_stats,
-    gn_stats, reference_attn_tail, reference_flash_attention, reference_gn_grad_stats,
-    reference_gn_stats, reference_groupnorm_film_silu)
+    gn_stats, groupnorm_silu_apply, reference_attn_tail, reference_flash_attention,
+    reference_gn_grad_stats, reference_gn_stats, reference_groupnorm_film_silu,
+    reference_groupnorm_silu_apply)
 from ..ops.kernels.attn_tail import TILED_MAX_C as ATTN_TAIL_MAX_C
 from ..ops.kernels.attn_tail import gelu
 from ..ops.kernels.dual_head import _KERNEL_WIDTHS as HEAD_WIDTHS
 from ..ops.kernels.flash_attention import _HEAD_DIMS as FLASH_HEAD_DIMS
+from ..parallel import mesh
 
 CL = torch.channels_last
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -167,7 +175,9 @@ class _ConvWgrad(torch.autograd.Function):
 class Conv2d(nn.Conv2d):
     """Conv with SAME padding for odd kernels, run in the input's dtype.
     A stride-1 1x1 or 3x3 conv takes the conv_wgrad route where
-    `wgrad_route` allows it."""
+    `wgrad_route` allows it. Under a spatial shard a k x k conv (k > 1)
+    takes k // 2 rows from each neighbouring rank (`mesh.halo_rows`) and
+    pads only along W."""
 
     def __init__(self, cin: int, cout: int, ks: int, stride: int = 1,
                  padding: Optional[int] = None, bias: bool = True):
@@ -194,10 +204,23 @@ class Conv2d(nn.Conv2d):
         """with_bias False: the conv without its bias, which the caller
         adds (Block folds it into the groupnorm_silu kernel)."""
         bias = self.bias if with_bias else None
+        shard = mesh.spatial()
+        if shard is not None and self.kernel_size[0] > 1:
+            return self._sharded(x, bias, shard)
         if self.wgrad_route(x):
             return _ConvWgrad.apply(x, self.weight, bias, self.padding[0])
         b = None if bias is None else bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+
+    def _sharded(self, x, bias, shard):
+        """This rank's rows of the conv: the rows with their halo, padded
+        along W only."""
+        kh, kw = self.kernel_size
+        if self.stride != (1, 1) or self.padding != (kh // 2, kw // 2):
+            raise NotImplementedError("a spatially sharded conv is a stride-1 SAME conv")
+        b = None if bias is None else bias.to(x.dtype)
+        return F.conv2d(mesh.halo_rows(x, kh // 2, shard), self.weight.to(x.dtype), b, 1,
+                        (0, kw // 2))
 
 
 class Linear(nn.Linear):
@@ -275,6 +298,14 @@ def _group_stats(s_c, sq_c, groups: int, cnt: int, eps: float):
             mean_g, inv_g)
 
 
+def _coefficients(s_c, sq_c, scale, bias, groups: int, cnt: int, eps: float):
+    """GroupNorm + affine as fp32 (B, C) (a, bb), x a + bb, from the fp32
+    per-channel sums over `cnt` elements a group."""
+    mean_c, inv_c, _, _ = _group_stats(s_c, sq_c, groups, cnt, eps)
+    a = inv_c * scale[None, :]
+    return a, bias[None, :] - mean_c * a
+
+
 class _GNCoeffs(torch.autograd.Function):
     """GroupNorm affine coefficients (a, bb), fp32 (B, C), with
     normalise + scale + bias == x * a + bb, from the gn_stats sums
@@ -289,9 +320,7 @@ class _GNCoeffs(torch.autograd.Function):
         s_c, sq_c = stats(x)
         ctx.groups, ctx.eps, ctx.cnt = groups, eps, h * w * (c // groups)
         ctx.save_for_backward(x, scale, s_c, sq_c)
-        mean_c, inv_c, _, _ = _group_stats(s_c, sq_c, groups, ctx.cnt, eps)
-        a = inv_c * scale[None, :]
-        return a, bias[None, :] - mean_c * a
+        return _coefficients(s_c, sq_c, scale, bias, groups, ctx.cnt, eps)
 
     @staticmethod
     def backward(ctx, da, dbb):
@@ -365,7 +394,14 @@ class GroupNorm(nn.Module):
     `runs_kernel('groupnorm', dtype, channels)` is false, both routes call
     the kernels' plain versions. On the kernel's route the caller may hand
     over the bias of the conv that made x (`folds_bias`), which the kernel
-    adds where it reads x."""
+    adds where it reads x.
+
+    Under a spatial shard (`mesh.spatial`) x is this rank's rows of the
+    frame: the fp32 per-channel sums of the shard (the gn_stats kernel, or
+    its plain version), all-reduced over the ranks, give the coefficients
+    with the whole frame's pixel count; then the per-sample FiLM folded in
+    and the groupnorm_silu_apply kernel, or the per-pixel FiLM and SiLU in
+    x's dtype. The conv bias stays on the conv there."""
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
@@ -380,7 +416,8 @@ class GroupNorm(nn.Module):
         """Whether this call runs the groupnorm_silu kernel, which can add
         the bias of the conv before it: evaluation, the kernel's route, and
         a FiLM that is absent or per-sample."""
-        return self.kernels and not self.training and not _per_pixel(scale_shift)
+        return (self.kernels and not self.training and not _per_pixel(scale_shift)
+                and mesh.spatial() is None)
 
     def forward(self, x, scale_shift=None, conv_bias=None):
         b, c, h, w = x.shape
@@ -388,6 +425,9 @@ class GroupNorm(nn.Module):
         if conv_bias is not None and not self.folds_bias(scale_shift):
             raise ValueError("GroupNorm adds a conv bias only on the groupnorm_silu kernel's "
                              "route (folds_bias)")
+        shard = mesh.spatial()
+        if shard is not None:
+            return self._sharded(x, scale_shift, per_pixel, shard)
         if self.training:
             return self._train_forward(x, scale_shift, per_pixel)
         if per_pixel:
@@ -413,6 +453,25 @@ class GroupNorm(nn.Module):
             s, sh = scale_shift
             y = y * (s + 1.0) + sh
         return F.silu(y)
+
+    def _sharded(self, x, scale_shift, per_pixel: bool, shard):
+        """x: this rank's rows; statistics over every rank's rows."""
+        b, c, h, w = x.shape
+        xh = to_nhwc(x)
+        stats = gn_stats if self.kernels else reference_gn_stats
+        s_c, sq_c = mesh.all_reduce_sum(torch.stack(stats(xh)))
+        cnt = shard.at_scale(h)[1] * w * (c // self.groups)  # the whole frame's rows
+        a, bb = _coefficients(s_c, sq_c, self.weight.float(), self.bias.float(), self.groups, cnt,
+                              self.eps)
+        if per_pixel:
+            dt = x.dtype
+            y = x * a[:, :, None, None].to(dt) + bb[:, :, None, None].to(dt)
+            s, sh = scale_shift
+            return F.silu(y * (s + 1.0) + sh)
+        if scale_shift is not None:
+            a, bb = _film_fold(a, bb, scale_shift)
+        apply = groupnorm_silu_apply if self.kernels else reference_groupnorm_silu_apply
+        return to_nchw(apply(xh.view(b, h * w, c), a, bb).view(b, h, w, c))
 
     def _per_pixel_film(self, x, scale_shift):
         """GN affine in fp32 coefficients applied in x's dtype, then the
@@ -642,6 +701,15 @@ class Downsample(nn.Sequential):
 
     def forward(self, x):
         conv = self[1]
+        shard = mesh.spatial()
+        if shard is not None:
+            # no halo: every shard is a multiple of 8 of the frame's rows
+            # (mesh.split_rows), so at each Downsample of the /8 UNet it
+            # starts on an even row and holds an even number of them
+            first = shard.at_scale(x.shape[2])[0]
+            if first % 2 or x.shape[2] % 2:
+                raise ValueError(f"Downsample of {x.shape[2]} rows from row {first}: a 2x2 "
+                                 "stride-2 conv of this shard would need its neighbour's rows")
         o, c4 = conv.weight.shape[:2]
         w = weight_view(conv.weight, (o, c4 // 4, 2, 2), (conv.weight.stride(0), 4, 2, 1))
         w = w.to(x.dtype)

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Union
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from .blocks import (
     AttnBlock,
     Conv2d,
@@ -121,7 +122,12 @@ class PosEmbUNet(nn.Module):
         where the variant uses it), or for UNet_PosEmbV2_NoPosition the bare
         clean image (others_arch.py:661). Returns (B, H, W, 4) in the model
         dtype. The inputs are cast to the compute dtype on entry, where the
-        JAX module's first convs cast them."""
+        JAX module's first convs cast them. Not under a spatial shard: the
+        frame split by rows runs NoiseDiffNet only."""
+        if mesh.spatial() is not None:
+            raise NotImplementedError(
+                "the UNet_PosEmbV2 family does not run on a frame split by rows: the spatial "
+                "axis is ported for NoiseDiffNet only (ROADMAP.md, Queue 1 item 2)")
         f = self.downsample_factor
         if x.shape[1] % f or x.shape[2] % f:
             raise ValueError(f"input spatial dims {tuple(x.shape[1:3])} must be divisible by {f}")

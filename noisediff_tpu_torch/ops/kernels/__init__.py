@@ -10,11 +10,14 @@ from .ddim_head import ddim_step_scalars, fused_ddim_head_update, reference_ddim
 from .dual_head import fused_dual_head, reference_dual_head
 from .flash_attention import flash_attention, reference_flash_attention
 from .gn_stats import gn_grad_stats, gn_stats, reference_gn_grad_stats, reference_gn_stats
-from .groupnorm_silu import fused_groupnorm_film_silu, reference_groupnorm_film_silu
+from .groupnorm_silu import (
+    fused_groupnorm_film_silu, groupnorm_silu_apply, reference_groupnorm_film_silu,
+    reference_groupnorm_silu_apply)
 
 # every kernel wrapper of the port (each carries `.launches`)
 KERNELS = (fused_attn_tail, fused_attn_tail_bwd, fused_groupnorm_film_silu, fused_dual_head,
-           fused_ddim_head_update, gn_stats, gn_grad_stats, conv_wgrad, flash_attention)
+           fused_ddim_head_update, gn_stats, gn_grad_stats, conv_wgrad, flash_attention,
+           groupnorm_silu_apply)
 
 
 def reset_launch_counts() -> None:
@@ -39,6 +42,7 @@ __all__ = [
     "fused_groupnorm_film_silu",
     "gn_grad_stats",
     "gn_stats",
+    "groupnorm_silu_apply",
     "launch_counts",
     "reference_attn_tail",
     "reference_attn_tail_bwd",
@@ -49,5 +53,6 @@ __all__ = [
     "reference_gn_grad_stats",
     "reference_gn_stats",
     "reference_groupnorm_film_silu",
+    "reference_groupnorm_silu_apply",
     "reset_launch_counts",
 ]

@@ -17,6 +17,13 @@ and the CUDA kernel for a tensor on the card; anything the kernel does not
 take raises. `fused_groupnorm_film_silu.launches` counts kernel launches
 (one per call).
 
+`groupnorm_silu_apply` is the same source's second entry: y = silu(x a +
+bb) from given fp32 (B, C) coefficients, the apply phase alone. The
+spatially sharded GroupNorm calls it (models/blocks.GroupNorm), whose
+statistics are the gn_stats sums all-reduced over the ranks that hold the
+frame's rows: this kernel's own statistics would see one shard only.
+`groupnorm_silu_apply.launches` counts its launches.
+
 Where a gradient is wanted on the card the wrapper is a
 torch.autograd.Function whose backward is autograd of
 `reference_groupnorm_film_silu`, recomputed from the saved inputs, as the
@@ -40,6 +47,8 @@ _SIGNATURES = {
     + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 9
     + [ctypes.c_uint, ctypes.c_float, ctypes.c_void_p],
     "nd_groupnorm_silu_smem_limit": [],
+    "nd_groupnorm_silu_apply": [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 # the kernel's block: up to MAX_THREADS threads, a whole number of rows of
@@ -49,6 +58,10 @@ MAX_THREADS = 512
 GRID_BYTES = 16 * 1024
 # the kernel's bulk-copy chunks (one mbarrier each) per slab
 NCH = 16
+# the apply kernel: blocks of APPLY_THREADS threads, at most APPLY_BLOCKS_PER_SM
+# a card's SM, each thread a grid-stride loop over 16-byte pieces
+APPLY_THREADS = 256
+APPLY_BLOCKS_PER_SM = 8
 
 
 @lru_cache(maxsize=256)
@@ -100,6 +113,14 @@ def gn_coefficients(x, gamma, beta, film_scale, film_shift, groups: int, eps: fl
     return a, bb
 
 
+def reference_groupnorm_silu_apply(x, a, bb):
+    """Plain version of the apply entry: y = silu(x * a + bb) in fp32 (a
+    product, then a sum), rounded once to x's dtype. x: (B, N, C); a, bb:
+    fp32 (B, C)."""
+    y = x.float() * a[:, None, :] + bb[:, None, :]
+    return torch.nn.functional.silu(y).to(x.dtype)
+
+
 def reference_groupnorm_film_silu(x, gamma, beta, film_scale=None, film_shift=None,
                                   groups: int = 8, eps: float = 1e-5, conv_bias=None):
     """Plain version with the kernel's arithmetic: x + conv_bias rounded to
@@ -108,8 +129,7 @@ def reference_groupnorm_film_silu(x, gamma, beta, film_scale=None, film_shift=No
     if conv_bias is not None:
         x = x + conv_bias.to(x.dtype)
     a, bb = gn_coefficients(x, gamma, beta, film_scale, film_shift, groups, eps)
-    y = x.float() * a[:, None, :] + bb[:, None, :]
-    return torch.nn.functional.silu(y).to(x.dtype)
+    return reference_groupnorm_silu_apply(x, a, bb)
 
 
 class _Scratch:
@@ -244,3 +264,42 @@ class _GroupNormSilu(torch.autograd.Function):
 
 
 fused_groupnorm_film_silu.launches = 0
+
+
+def groupnorm_silu_apply(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor) -> torch.Tensor:
+    """x: (B, N, C) bf16; a, bb: (B, C) fp32 coefficients. Returns silu(x *
+    a + bb) in x's dtype, one launch on the card (not differentiable: the
+    sharded forward runs without autograd)."""
+    if x.device.type == "cpu":
+        return reference_groupnorm_silu_apply(x, a, bb)
+    if x.device.type != "cuda":
+        raise ValueError(f"groupnorm_silu_apply kernel needs a CUDA tensor, got {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"groupnorm_silu_apply kernel is built for bfloat16, got {x.dtype}")
+    if x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("groupnorm_silu_apply kernel takes a contiguous, 16-byte aligned "
+                         "(B, N, C) tensor")
+    b, n, c = x.shape
+    if c % 8:
+        raise ValueError(f"groupnorm_silu_apply kernel needs C % 8 == 0, got C={c}")
+    dev = x.device
+    # held until the launch: a converted operand's memory must not go back
+    # to the allocator before the kernel reads it
+    a, bb = (_build.on_device(t, dev, torch.float32) for t in (a, bb))
+    if tuple(a.shape) != (b, c) or tuple(bb.shape) != (b, c) or a.data_ptr() % 16 or \
+            bb.data_ptr() % 16:
+        raise ValueError(f"groupnorm_silu_apply: coefficients {tuple(a.shape)}, "
+                         f"{tuple(bb.shape)} for x {tuple(x.shape)}, 16-byte aligned")
+    lib = _kernel(dev)[1]
+    y = torch.empty_like(x)
+    pieces = b * n * c // 8
+    grid = max(1, min(-(-pieces // APPLY_THREADS), APPLY_BLOCKS_PER_SM * _build.sm_count(dev)))
+    code = _build.launch(dev, lib.nd_groupnorm_silu_apply, x.data_ptr(), a.data_ptr(),
+                         bb.data_ptr(), y.data_ptr(), b, n, c, grid,
+                         torch._C._cuda_getCurrentRawStream(dev.index))
+    _build.check(lib, code, "groupnorm_silu_apply")
+    groupnorm_silu_apply.launches += 1
+    return y
+
+
+groupnorm_silu_apply.launches = 0

@@ -10,7 +10,10 @@ under the snapshot directory,
 
 so the port's generation CLI and the JAX package's train/torch_import.py
 both load net and ema files. Each file is written to a temporary name and
-renamed, so a preempted save never leaves a partial snapshot.
+renamed, so a preempted save never leaves a partial snapshot. A JAX run's
+orbax directories `{name}_{epoch}` are not snapshots of this format:
+`latest_epoch` raises on them (weights.orbax_error) instead of passing
+them over.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import os
 from typing import Any, Optional
 
 import torch
+
+from ..weights import orbax_error
 
 
 def component_path(snapshot_dir: str, name: str, epoch) -> str:
@@ -39,11 +44,16 @@ def load_component(path: str) -> Any:
 
 
 def latest_epoch(snapshot_dir: str, name: str = "net") -> Optional[str]:
-    """Newest '{name}_{epoch}.pth' tag ('final' outranks any number)."""
+    """Newest '{name}_{epoch}.pth' tag ('final' outranks any number).
+    Raises on a '{name}_{epoch}' directory: a JAX run's orbax snapshot,
+    which `--resume auto` cannot continue from (weights.orbax_error)."""
     if not os.path.isdir(snapshot_dir):
         return None
-    tags = [entry[len(name) + 1:-4] for entry in os.listdir(snapshot_dir)
-            if entry.startswith(name + "_") and entry.endswith(".pth")]
+    entries = [e for e in os.listdir(snapshot_dir) if e.startswith(name + "_")]
+    orbax = sorted(e for e in entries if os.path.isdir(os.path.join(snapshot_dir, e)))
+    if orbax:
+        raise orbax_error(os.path.join(snapshot_dir, orbax[-1]))
+    tags = [entry[len(name) + 1:-4] for entry in entries if entry.endswith(".pth")]
     tags = [t for t in tags if t == "final" or t.isdigit()]
     if not tags:
         return None

@@ -21,7 +21,12 @@ noisediff_tpu/train/torch_import.py, with the layout transforms inverted:
                     running_mean, running_var, beside a num_batches_tracked
                     of 0 (flax counts no batches)
 
-Orbax snapshot directories are not read yet (ROADMAP.md, Queue 1 item 3).
+A single-process JAX run saves its snapshots as orbax directories, which
+the port does not read (orbax writes zstd-compressed stores, and the port
+imports neither orbax nor a zstd decoder): `scripts/orbax_to_npz.py`,
+run where jax and orbax are installed, writes each as the flat `.npz`
+beside it, and every loader here raises `orbax_error` on a directory
+without one.
 
 Training state crosses the same way: `adam_state_from_jax` turns an optax
 Adam state (the `mu` and `nu` trees and the step count of
@@ -161,6 +166,16 @@ def strip_module_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     return {(k[7:] if k.startswith("module.") else k): v for k, v in state_dict.items()}
 
 
+def orbax_error(path: str) -> NotImplementedError:
+    """The error for an orbax snapshot directory of the JAX package that has
+    no converted `.npz` beside it."""
+    return NotImplementedError(
+        f"{path}: an orbax snapshot directory of the JAX package, which the port does not read; "
+        f"convert it where jax and orbax are installed with `python scripts/orbax_to_npz.py "
+        f"{path}` (a whole snapshot directory converts every component in it) and load the "
+        f"{os.path.basename(os.path.normpath(path))}.npz it writes beside it")
+
+
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """A checkpoint file -> torch state_dict: `.pth`/`.pt` (a torch
     state_dict, possibly DDP-prefixed) or a flat `.npz` snapshot of a JAX
@@ -176,10 +191,7 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
             items = [(p[1:], v) for p, v in items]
         return _from_paths(items)
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: orbax snapshot directories are not read by the port yet "
-            "(ROADMAP.md, Queue 1 item 3); save the params as .npz or .pth"
-        )
+        raise orbax_error(path)
     raise FileNotFoundError(path)
 
 
@@ -221,6 +233,8 @@ def load_jax_opt_npz(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], int, Di
     count, counters): the Adam moment trees, the Adam step count and the
     trainer's {'step', 'ema_step'} where saved."""
     npz = path if path.endswith(".npz") else path + ".npz"
+    if not os.path.isfile(npz) and os.path.isdir(path):
+        raise orbax_error(path)
     mu: Dict[str, Any] = {}
     nu: Dict[str, Any] = {}
     count: Optional[int] = None

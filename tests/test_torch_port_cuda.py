@@ -1094,11 +1094,9 @@ mesh.teardown()
 '''
 
 
-def test_gloo_two_rank_step_on_one_card(dev, tmp_path):
-    """Two ranks of a DDP training step (NoiseDiffNet dim 16, bf16, the
-    kernels' route, crop 32, global batch 4) over gloo on CUDA tensors,
-    both on cuda:0: both log the same loss and grad norm, end with
-    bit-equal parameters, and launch the training path's kernels."""
+def _two_ranks_on_one_card(code, env=None):
+    """Run `code` (python -c) as 2 ranks with torchrun's environment, both
+    on cuda:0; returns each rank's last stdout line parsed as JSON."""
     import json
     import socket
     import subprocess
@@ -1111,10 +1109,10 @@ def test_gloo_two_rank_step_on_one_card(dev, tmp_path):
     procs = []
     try:
         for rank in (0, 1):
-            env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
-                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                       PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
-            procs.append(subprocess.Popen([sys.executable, "-c", DIST_RANK], cwd=root, env=env,
+            child = dict(os.environ, **(env or {}), RANK=str(rank), WORLD_SIZE="2",
+                         LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                         PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+            procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=root, env=child,
                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                           text=True))
         outs = []
@@ -1127,9 +1125,106 @@ def test_gloo_two_rank_step_on_one_card(dev, tmp_path):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    return outs
+
+
+def test_gloo_two_rank_step_on_one_card(dev, tmp_path):
+    """Two ranks of a DDP training step (NoiseDiffNet dim 16, bf16, the
+    kernels' route, crop 32, global batch 4) over gloo on CUDA tensors,
+    both on cuda:0: both log the same loss and grad norm, end with
+    bit-equal parameters, and launch the training path's kernels."""
+    outs = _two_ranks_on_one_card(DIST_RANK)
     r0, r1 = outs
     assert (r0["device"], r1["device"]) == ("cuda:0", "cuda:0")
     assert r0["metrics"] == r1["metrics"] and r0["digest"] == r1["digest"]
     for name in ("fused_attn_tail", "fused_attn_tail_bwd", "gn_stats", "gn_grad_stats",
                  "fused_dual_head"):
         assert r0["launches"][name] > 0 and r0["launches"][name] == r1["launches"][name], name
+
+
+@pytest.mark.parametrize("b,n,c", [(2, 1000, 48), (1, 89 * 266, 384), (3, 17, 8), (1, 5, 96),
+                                   (1, 178 * 532, 192)])
+def test_groupnorm_silu_apply_kernel(dev, b, n, c):
+    """silu(x a + bb) from given coefficients, one launch a call, against
+    the plain version (same product, sum and SiLU in fp32, one rounding)."""
+    from noisediff_tpu_torch.ops.kernels import (
+        groupnorm_silu_apply, reference_groupnorm_silu_apply)
+
+    x = _randn(dev, b, n, c, scale=1.5, dtype=torch.bfloat16)
+    a, bb = 1 + 0.2 * _randn(dev, b, c, seed=1), 0.3 * _randn(dev, b, c, seed=2)
+    n0 = groupnorm_silu_apply.launches
+    got = groupnorm_silu_apply(x, a, bb)
+    assert groupnorm_silu_apply.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _close(got, reference_groupnorm_silu_apply(x, a, bb), 2e-2)
+    assert torch.equal(got, groupnorm_silu_apply(x, a, bb))
+
+
+SHARDED_RANK = r'''
+import json, os
+import numpy as np
+import torch
+from noisediff_tpu_torch.cli.common import set_precision_flags
+from noisediff_tpu_torch.diffusion.fullframe import generate_full_frame
+from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from noisediff_tpu_torch.models import NoiseDiffNet
+from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from noisediff_tpu_torch.ops.schedules import make_schedule
+from noisediff_tpu_torch.parallel import mesh
+
+set_precision_flags()
+shard, dev = mesh.setup(torch.device("cuda"), "gloo")
+d = os.environ["SHARDED_DIR"]
+clean = np.load(os.path.join(d, "clean.npy"))
+x = torch.from_numpy(np.load(os.path.join(d, "x.npy")))
+launches = {}
+for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+    model = NoiseDiffNet(dim=16, dtype=dtype)
+    model.load_state_dict(torch.load(os.path.join(d, "net.pt")))
+    gd = GaussianDiffusion(model.to(dev, memory_format=torch.channels_last).eval(),
+                           make_schedule("sigmoid2", 1000), image_size=64, device=dev)
+    reset_launch_counts()
+    frame = generate_full_frame(gd, clean, 24, sampling_timesteps=2, init_noise=x)
+    launches[name] = launch_counts()
+    if shard.rank == 0:
+        np.save(os.path.join(d, f"{name}.npy"), frame)
+print(json.dumps({"rank": shard.rank, "device": str(dev), "launches": launches}))
+mesh.teardown()
+'''
+
+
+def test_sharded_full_frame_on_one_card(dev, tmp_path):
+    """generate_full_frame split over 2 ranks (gloo, both on cuda:0; dim
+    16, a 64 x 96 frame, 32 rows a rank): fp32 within 1e-4 rel L2 of one
+    card (TF32 off: an off-by-one halo row moves the seam by the signal's
+    size), bf16 within 5e-2 (rounding, as the fp32-plain check above); per
+    evaluation each rank launches 44 gn_stats and 42 groupnorm_silu_apply
+    and no groupnorm_silu (its statistics would see one shard), none in
+    fp32."""
+    from noisediff_tpu_torch.diffusion.fullframe import generate_full_frame
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import NoiseDiffNet
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+
+    torch.manual_seed(0)
+    ref = NoiseDiffNet(dim=16)
+    torch.save(ref.state_dict(), tmp_path / "net.pt")
+    clean = np.random.default_rng(2).uniform(0, 0.3, (64, 96, 4)).astype(np.float32)
+    x = torch.randn((1, 64, 96, 4), generator=torch.Generator().manual_seed(3))
+    np.save(tmp_path / "clean.npy", clean)
+    np.save(tmp_path / "x.npy", x.numpy())
+    outs = _two_ranks_on_one_card(SHARDED_RANK, {"SHARDED_DIR": str(tmp_path)})
+    for name, dtype, tol in (("bf16", torch.bfloat16, 5e-2), ("fp32", None, 1e-4)):
+        model = NoiseDiffNet(dim=16, dtype=dtype)
+        model.load_state_dict(ref.state_dict())
+        gd = GaussianDiffusion(model.to(dev, memory_format=torch.channels_last).eval(),
+                               make_schedule("sigmoid2", 1000), image_size=64, device=dev)
+        want = generate_full_frame(gd, clean, 24, sampling_timesteps=2, init_noise=x)
+        got = np.load(tmp_path / f"{name}.npy")
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert got.shape == (64, 96, 4) and rel <= tol, (name, rel)
+    for r in outs:
+        c = r["launches"]["bf16"]
+        assert (c["gn_stats"], c["groupnorm_silu_apply"], c["fused_groupnorm_film_silu"]) == (
+            88, 84, 0), c
+        assert c["fused_attn_tail"] == 18 and not any(r["launches"]["fp32"].values())
