@@ -68,7 +68,7 @@ Every phase runs, in this order (any failure exits non-zero):
            miniature tree: steps/s beside the default run's and the
            conv_wgrad launches per step
   fp32     --no_mixed_precision (fp32 compute, the plain route of every
-           block) through both CLIs: 2 DPM-10 batches after ddim, 2 training
+           block) through both CLIs: 1 DPM-10 batch after ddim, 2 training
            steps (crop 128, batch 50) after train_wgrad on the default wgrad
            route and 2 under NOISEDIFF_WGRAD=pallas; no kernel launches,
            finite outputs and losses
@@ -162,6 +162,19 @@ this script starts with torchrun's environment, `spawn_ranks`):
            gradients within train_check's bounds (and whether bit-equal),
            peak device memory and a step's time for both, the recompute's
            extra launches
+  train_sharded  the canonical training step on the grid (parallel/mesh.py
+           make_mesh: data x spatial x model) over {spatial 2}, {model 2}
+           and {spatial 2, model 2} (train_sharded_rank; NCCL where the
+           machine has a card a rank, else gloo with the ranks on one card;
+           scripts/port_train_sharded.py runs it alone): fp32 and bf16 first
+           steps against dist_step's one-process steps (fp32 loss, grad norm
+           and every gathered gradient and Adam-updated parameter within
+           1e-4 rel L2; bf16 within twice the one-process bf16-against-fp32
+           distance plus 0.02), each rank's launches a step (9 / 9 attn_tail
+           forward / backward, 44 / 44 gn_stats / gn_grad_stats, 1
+           dual_head, nothing else), NOISEDIFF_WGRAD=pallas refused under a
+           spatial shard; each rank's step ms, peak memory, parameter and
+           Adam bytes, and the collectives' count and host ms a step
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -2789,6 +2802,8 @@ def rank_main() -> int:
         out = dist_step_rank(job)
     elif job["job"] == "fullframe_sharded":
         out = fullframe_sharded_rank(job)
+    elif job["job"] == "train_sharded":
+        out = train_sharded_rank(job)
     else:
         from noisediff_tpu_torch.cli import test_diffusion, train_denoising, train_diffusion
         from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -2811,14 +2826,14 @@ def rank_main() -> int:
 
 
 def _span_stats(prof, n: int):
-    """{span: (count, host ms)} per evaluation of the spatial axis's
-    profiler spans (mesh.HALO_SPAN, mesh.GN_SPAN) in a profile of n
-    evaluations, and the NCCL kernels' device ms, where there are any."""
+    """{span: (count, host ms)} per evaluation (or step) of the grid's
+    profiler spans (mesh.SPANS) in a profile of n of them, and the NCCL
+    kernels' device ms, where there are any."""
     from noisediff_tpu_torch.parallel import mesh
 
     out = {}
     for e in prof.key_averages():
-        if e.key in (mesh.HALO_SPAN, mesh.GN_SPAN) and not str(e.device_type).endswith("CUDA"):
+        if e.key in mesh.SPANS and not str(e.device_type).endswith("CUDA"):
             out[e.key] = {"count": e.count / n, "host_ms": e.cpu_time_total / 1e3 / n}
     by_name = _device_ms_by_name(prof, n)
     out["nccl_device_ms"] = sum(v for k, v in by_name.items() if "nccl" in k.lower())
@@ -2964,11 +2979,11 @@ def _train_model(seed: int, dev, dtype, remat=False):
     return model.to(dev, memory_format=torch.channels_last).train()
 
 
-def _param_digest(model) -> str:
+def _param_digest(tensors) -> str:
     import hashlib
 
     h = hashlib.sha256()
-    for p in model.parameters():
+    for p in tensors:
         h.update(p.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -3017,7 +3032,8 @@ def dist_step_rank(job):
                         "params": {n: p.detach().cpu() for n, p in model.named_parameters()}},
                        job["first_step"])
     out = dict(rank=shard.rank, world=shard.world, backend=torch.distributed.get_backend(),
-               device=str(dev), metrics=metrics, step_ms=ms, digest=_param_digest(model),
+               device=str(dev), metrics=metrics, step_ms=ms,
+               digest=_param_digest(model.parameters()),
                peak_bytes=torch.cuda.max_memory_allocated(dev), launches=launch_counts())
     mesh.teardown()
     return out
@@ -3242,16 +3258,7 @@ def phase_dist_step(seed: int, workdir: str, ref):
         raise AssertionError(f"dist_step: grad norm {m0['grad_norm']} against the one-process "
                              f"step's {b16['grad_norm']}")
     lr = 1e-4
-    worst, held, total = 0.0, 0, 0
-    for n, g in saved["grads"].items():
-        want = b16["grads"][n]
-        settled = want.abs() > torch.clamp(2 * (g - want).abs(), min=1e-5)
-        step2 = saved["params"][n].float() - b16["init"][n].float()
-        step1 = b16["params"][n].float() - b16["init"][n].float()
-        if bool(settled.any()):
-            worst = max(worst, float((step2 - step1).abs()[settled].max()))
-        held += int(settled.sum())
-        total += g.numel()
+    worst, held, total = _settled_updates(saved["grads"], saved["params"], b16, lr)
     if worst > 1e-2 * lr or 4 * held < total:
         raise AssertionError(f"dist_step: on {held} of {total} elements whose gradient sign "
                              f"is settled the updates differ by up to {worst} (bound "
@@ -3270,6 +3277,267 @@ def phase_dist_step(seed: int, workdir: str, ref):
             f"CUDA-event ms {[round(v, 3) for v in r['step_ms']]}; launches {r['launches']}")
     log(f"  {wall:.1f} s for both ranks, start-up included")
     return dict(backend=backend, ranks=[r0, r1], checks=checks, held=held, total=total)
+
+
+TRAIN_GRIDS = {"spatial2": {"spatial": 2}, "model2": {"model": 2},
+               "spatial2_model2": {"spatial": 2, "model": 2}}
+SHARDED_STEPS = 2  # timed bf16 steps a rank, after the checked first one
+TRAIN_FP32_REL = 1e-4
+
+
+def _state_bytes(model, opt) -> int:
+    """This rank's parameter and Adam-moment bytes."""
+    import torch
+
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    return n + sum(t.numel() * t.element_size() for st in opt.state.values()
+                   for t in st.values() if torch.is_tensor(t) and t.dim() > 0)
+
+
+def train_sharded_rank(job):
+    """The body of one train_sharded rank: the grid job["axes"] over
+    job["backend"]; the canonical training step (dim 48, crop 512, global
+    batch BATCH, Adam) from _train_model's seeded weights, this rank's part
+    of the canonical batch (Grid.local) and the first step's draws, in fp32
+    and then bf16. Rank 0 saves each first step's gathered gradients and
+    parameters to job["first_step"] % dtype; every rank returns each step's
+    loss, grad norm, launches and parameter and Adam bytes, and for bf16
+    SHARDED_STEPS more steps' CUDA-event ms, the peak memory, a profile of a
+    step (the collectives' spans) and, on a spatial grid, whether
+    NOISEDIFF_WGRAD=pallas is refused."""
+    import torch
+
+    from noisediff_tpu_torch.cli.common import set_precision_flags
+    from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from noisediff_tpu_torch.models import blocks, is_unread_parameter
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+    from noisediff_tpu_torch.parallel import mesh
+    from noisediff_tpu_torch.train.state import make_diffusion_train_step, make_optimizer
+    from noisediff_tpu_torch.train.trainer_diffusion import step_seed
+
+    seed = job["seed"]
+    set_precision_flags()  # fp32 products in fp32, as the one-process reference
+    _, dev = mesh.setup(torch.device("cuda"), job["backend"])
+    grid = mesh.make_mesh(job["axes"])
+    out = dict(rank=grid.rank, coords=grid.coords, backend=torch.distributed.get_backend(),
+               device=str(dev))
+    schedule = make_schedule("sigmoid2", 1000)
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = _train_model(seed, dev, dtype)
+        mesh.shard_parameters(model, grid.model)
+        net = mesh.wrap(model, dev, is_unread_parameter, grid.replica_group)
+        opt = make_optimizer(model.parameters())
+        step = make_diffusion_train_step(
+            GaussianDiffusion(net, schedule, image_size=CROP, device=dev), opt, grid=grid)
+        batch = grid.local(_canonical_batch(torch.Generator(device=dev).manual_seed(seed), dev))
+        g = torch.Generator(device=dev).manual_seed(step_seed(seed, 0))
+        reset_launch_counts()
+        m = step(batch, g)
+        r = dict(loss=float(m["diffusion_loss"]), grad_norm=float(m["grad_norm"]),
+                 launches=launch_counts(), state_bytes=_state_bytes(model, opt))
+        grads = mesh.gather_params(model, grads=True)
+        params = mesh.gather_params(model)
+        if grid.rank == 0:
+            torch.save({"grads": {n: v.float().cpu() for n, v in grads.items() if v is not None},
+                        "params": {n: v.cpu() for n, v in params.items()}},
+                       job["first_step"] % name)
+        del grads, params
+        if dtype is not None:
+            ms = []
+            for i in range(1, 1 + SHARDED_STEPS):
+                g.manual_seed(step_seed(seed, i))
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                step(batch, g)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            r.update(step_ms=ms, peak_bytes=torch.cuda.max_memory_allocated(dev))
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                step(batch, g)
+                torch.cuda.synchronize(dev)
+            r["spans"] = _span_stats(prof, 1)
+            whole = mesh.gather_params(model)
+            r["digest"] = _param_digest(whole[n] for n in sorted(whole))
+            del whole
+            shard = grid.spatial(CROP)
+            if shard is not None:
+                # the JAX conv_wgrad_p refuses a spatial shard; so must the port
+                os.environ["NOISEDIFF_WGRAD"] = "pallas"
+                try:
+                    gd = GaussianDiffusion(model, schedule, image_size=CROP, device=dev)
+                    with mesh.activate(shard):
+                        gd.loss(batch["noise"], {"clean_img": batch["clean_img"],
+                                                 "position": batch["coord"],
+                                                 "iso_ratio_idx": batch["iso_ratio_idx"]},
+                                t=torch.zeros(batch["noise"].shape[0], dtype=torch.long,
+                                              device=dev))
+                    r["wgrad_refused"] = None
+                except ValueError as exc:
+                    r["wgrad_refused"] = str(exc) == blocks.WGRAD_SPATIAL_ERROR
+                finally:
+                    del os.environ["NOISEDIFF_WGRAD"]
+        out[name] = r
+        del model, net, opt, step, batch
+    mesh.teardown()
+    return out
+
+
+def _all_rel(got, want) -> float:
+    """rel L2 of every tensor of `want` together."""
+    import torch
+
+    names = sorted(want)
+    return rel_l2(torch.cat([got[n].float().flatten() for n in names]),
+                  torch.cat([want[n].float().flatten() for n in names]))
+
+
+def _settled_updates(grads, params, ref, lr: float = 1e-4):
+    """Adam's first update against one process's (`ref`: its init, grads
+    and params): on every element whose one-process gradient exceeds twice
+    its distance to `grads` and 1e-5 (1e3 Adam eps) both steps moved the
+    parameter by the same +-lr. Returns (largest difference of the two
+    updates there, elements held, elements)."""
+    import torch
+
+    worst, held, total = 0.0, 0, 0
+    for n, g in grads.items():
+        want = ref["grads"][n]
+        settled = want.abs() > torch.clamp(2 * (g - want).abs(), min=1e-5)
+        step2 = params[n].float() - ref["init"][n].float()
+        step1 = ref["params"][n].float() - ref["init"][n].float()
+        if bool(settled.any()):
+            worst = max(worst, float((step2 - step1).abs()[settled].max()))
+        held += int(settled.sum())
+        total += g.numel()
+    return worst, held, total
+
+
+def phase_train_sharded(seed: int, workdir: str, ref):
+    """The canonical training step on each grid of TRAIN_GRIDS
+    (train_sharded_rank), held against the one-process first steps of
+    `ref` (reference_steps: the same weights, batch and draws). fp32: the
+    loss, grad norm, every gathered gradient and every Adam-updated
+    parameter within TRAIN_FP32_REL rel L2, and the update equal to the
+    one-process one on the elements whose gradient sign is settled (as
+    dist_step). bf16: the loss and grad norm within twice the one-process
+    bf16-against-fp32 distance plus 0.02 of the fp32 step, the gradients
+    within train_check's bounds (_check_grads), the parameters within twice
+    their bf16-against-fp32 distance plus 0.02. Every rank launches, a
+    step, exactly TRAIN_PER_STEP's kernels (none in fp32), logs one loss
+    and grad norm, and on a spatial grid refuses NOISEDIFF_WGRAD=pallas.
+    Reports each rank's step ms and peak memory beside one process's, its
+    parameter and Adam bytes, and the collectives' count and host ms a
+    step from a profile."""
+    import torch
+
+    from noisediff_tpu_torch.models import is_unread_parameter
+    from noisediff_tpu_torch.parallel import mesh
+
+    cards = torch.cuda.device_count()
+    want_launches = {k: TRAIN_PER_STEP.get(k, 0) for k in KERNEL_WRAPPERS}
+    f32, b16 = ref["fp32"], ref["bf16"]
+    read = [n for n in f32["grads"] if not is_unread_parameter(n)]
+    runs = {}
+    for name, axes in TRAIN_GRIDS.items():
+        t0 = time.time()
+        world = 1
+        for v in axes.values():
+            world *= v
+        backend = "nccl" if cards >= world else "gloo"
+        job = dict(job="train_sharded", name=name, seed=seed, axes=axes, backend=backend,
+                   first_step=os.path.join(workdir, f"ts_{name}_%s.pt"),
+                   result=os.path.join(workdir, f"ts_{name}.rank%d.json"))
+        ranks = spawn_ranks(job, world, workdir)
+        wall = time.time() - t0
+        for dt in ("fp32", "bf16"):
+            seen = {(r[dt]["loss"], r[dt]["grad_norm"]) for r in ranks}
+            if len(seen) != 1:
+                raise AssertionError(f"train_sharded {name} {dt}: the ranks logged {seen}")
+        for r in ranks:
+            if any(r["fp32"]["launches"].values()):
+                raise AssertionError(f"train_sharded {name}: fp32 launched {r['fp32']['launches']}")
+            if r["bf16"]["launches"] != want_launches:
+                raise AssertionError(f"train_sharded {name}: rank {r['rank']} launched "
+                                     f"{r['bf16']['launches']} a step, expected {want_launches}")
+            if "spatial" in axes and r["bf16"].get("wgrad_refused") is not True:
+                raise AssertionError(f"train_sharded {name}: NOISEDIFF_WGRAD=pallas under a "
+                                     f"spatial shard gave {r['bf16'].get('wgrad_refused')}")
+        got = {dt: torch.load(job["first_step"] % dt, weights_only=True)
+               for dt in ("fp32", "bf16")}
+        m32, m16 = ranks[0]["fp32"], ranks[0]["bf16"]
+
+        # fp32: the same sums in another order. The parameters after Adam
+        # are held all together: a zero-initialised one (every GroupNorm
+        # bias) is +-lr on each element after the first step, the sign of
+        # a gradient that may be rounding noise; Adam's update is held
+        # where the gradient's sign is settled (as dist_step)
+        rel32 = dict(loss=abs(m32["loss"] - f32["loss"]) / abs(f32["loss"]),
+                     grad_norm=abs(m32["grad_norm"] - f32["grad_norm"]) / f32["grad_norm"])
+        if sorted(got["fp32"]["grads"]) != sorted(read) or \
+                sorted(got["fp32"]["params"]) != sorted(f32["params"]):
+            raise AssertionError(f"train_sharded {name}: gathered names differ from one process's")
+        g_worst = max((rel_l2(got["fp32"]["grads"][n], f32["grads"][n]), n) for n in read)
+        p_all = _all_rel(got["fp32"]["params"], f32["params"])
+        p_worst = max((rel_l2(v, f32["params"][n]), n) for n, v in got["fp32"]["params"].items())
+        upd_worst, held, total = _settled_updates(got["fp32"]["grads"], got["fp32"]["params"], f32)
+        log(f"  {name}: {world} ranks over {backend}; fp32 against one process: loss "
+            f"{m32['loss']:.6f} / {f32['loss']:.6f} (rel {rel32['loss']:.3g}), grad norm "
+            f"{m32['grad_norm']:.6f} / {f32['grad_norm']:.6f} (rel {rel32['grad_norm']:.3g}); "
+            f"worst gradient rel L2 {g_worst[0]:.3g} ({g_worst[1]}); parameters after Adam "
+            f"{p_all:.3g} (worst {p_worst[0]:.3g}, {p_worst[1]}); bound {TRAIN_FP32_REL:g}; "
+            f"Adam's update equal within {upd_worst:.3g} (bound 1e-6) on the {held} of {total} "
+            f"elements whose gradient sign is settled")
+        if max(rel32.values()) > TRAIN_FP32_REL or g_worst[0] > TRAIN_FP32_REL or \
+                p_all > TRAIN_FP32_REL or upd_worst > 1e-6 or 4 * held < total:
+            raise AssertionError(f"train_sharded {name}: fp32 step off one process's: {rel32}, "
+                                 f"{g_worst}, {p_all}, {upd_worst}, {held}/{total}")
+
+        # bf16: the kernels' route, held as the split frame is
+        checks = _check_grads(f"train_sharded {name}", BATCH, CROP, m16["loss"],
+                              got["bf16"]["grads"], b16["loss"], b16["grads"], f32["grads"])
+        for k in ("loss", "grad_norm"):
+            limit = 2 * abs(b16[k] - f32[k]) + 0.02 * abs(f32[k])
+            if abs(m16[k] - f32[k]) > limit:
+                raise AssertionError(f"train_sharded {name}: bf16 {k} {m16[k]} against fp32 "
+                                     f"{f32[k]} (bf16 one process {b16[k]}; bound {limit})")
+        p16 = _all_rel(got["bf16"]["params"], f32["params"])
+        p16_limit = 2 * _all_rel(b16["params"], f32["params"]) + 0.02
+        upd16, held16, _ = _settled_updates(got["bf16"]["grads"], got["bf16"]["params"], b16)
+        log(f"  {name} bf16: loss {m16['loss']:.6f} (one process {b16['loss']:.6f}), grad norm "
+            f"{m16['grad_norm']:.6f} ({b16['grad_norm']:.6f}); parameters after Adam against "
+            f"fp32 {p16:.3g} (bound {p16_limit:.3g}), the update equal to one process's bf16 "
+            f"within {upd16:.3g} (bound 1e-6) on {held16} settled elements; launches a rank a "
+            f"step { {k: v for k, v in m16['launches'].items() if v} }; parameters "
+            f"{'bit-equal' if len({r['bf16']['digest'] for r in ranks}) == 1 else 'not bit-equal'}"
+            f" across the ranks after {2 + SHARDED_STEPS} steps")
+        if p16 > p16_limit or upd16 > 1e-6 or 4 * held16 < total:
+            raise AssertionError(f"train_sharded {name}: bf16 parameters after Adam: {p16} "
+                                 f"(bound {p16_limit}), {upd16}, {held16}/{total}")
+        for r in ranks:
+            b = r["bf16"]
+            spans = b["spans"]
+            log(f"  rank {r['rank']} {r['coords']}: step ms {[round(v, 3) for v in b['step_ms']]} "
+                f"(one process {b16['step_ms']:.3f}); peak {b['peak_bytes'] / 2 ** 30:.3f} GiB "
+                f"(one process {b16['peak_bytes_steps'] / 2 ** 30:.3f}); parameters and Adam "
+                f"{b['state_bytes'] / 2 ** 20:.1f} MiB; a step: "
+                + ", ".join(f"{k} {spans[k]['count']:g} calls {spans[k]['host_ms']:.3f} ms"
+                            for k in mesh.SPANS if k in spans)
+                + f"; its device work {spans['compute_device_ms']:.3f} ms, NCCL's "
+                f"{spans['nccl_device_ms']:.3f}")
+        log(f"  {name}: {wall:.1f} s, start-up included")
+        runs[name] = dict(backend=backend, world=world, fp32=dict(rel32, grad=g_worst[0],
+                                                                   params=p_all),
+                          bf16=checks, ranks=ranks, wall_s=wall,
+                          counts={k: sum(r["bf16"]["launches"][k] for r in ranks)
+                                  for k in KERNEL_WRAPPERS})
+    return runs
 
 
 def phase_remat(ref):
@@ -3926,10 +4194,13 @@ def main(argv=None) -> int:
         log("[ddim] DDIM-100 generation through the CLI, the fused DDIM tail")
         ddim = phase_ddim(args.seed, workdir, ckpt)
         log("[fp32] DPM-10 generation through the CLI with --no_mixed_precision")
-        run_generation(gen_argv(workdir, ckpt, args.seed, "fp32",
+        # one batch: the fp32 plain route takes ~23 s a batch (final run, PR 14)
+        fp32_tree = os.path.join(workdir, "fp32_tree")
+        make_sid_tree(fp32_tree, args.seed, batches=1)
+        run_generation(gen_argv(fp32_tree, ckpt, args.seed, "fp32",
                                 ["--sampler", "dpm", "--no_mixed_precision"]),
-                       {k: 0 for k in KERNEL_WRAPPERS}, "fp32 generation")
-        log(f"  {N_BATCHES} batches of {BATCH} patches, fp32, no kernel launched")
+                       {k: 0 for k in KERNEL_WRAPPERS}, "fp32 generation", batches=1)
+        log(f"  1 batch of {BATCH} patches, fp32, no kernel launched")
         log("[denoise] LSID trained through the denoising CLI on the main phase's patches")
         denoise = phase_denoise(args.seed, workdir, os.path.join(
             workdir, "out", "ISO800_Ratio250", "npy", "generated"))
@@ -3985,6 +4256,10 @@ def main(argv=None) -> int:
         dist_step = phase_dist_step(args.seed, workdir, ref)
         log("[remat] the canonical training step with and without --remat")
         remat = phase_remat(ref)
+        log("[train_sharded] the canonical training step on the data x spatial x model grid")
+        t0 = time.time()
+        train_sharded = phase_train_sharded(args.seed, workdir, ref)
+        log(f"  train_sharded phase {time.time() - t0:.1f} s")
         del ref
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4022,6 +4297,8 @@ def main(argv=None) -> int:
             # apart from the counts above: the spawned ranks' own counters
             # and one --remat step
             "launches_dist_step": sum(r["launches"][w] for r in dist_step["ranks"]),
+            # the first bf16 step of every rank of each grid
+            "launches_train_sharded": {g: r["counts"][w] for g, r in train_sharded.items()},
             "launches_dist_gen": sum(r["launches"][w] for r in dist_gen["ranks"]),
             "launches_dist_train_world1": dist_train["world1"][0]["launches"][w],
             "launches_remat_step": remat["launches"][w]})

@@ -16,8 +16,8 @@ step's noise are drawn for the whole frame from a generator seeded alike
 on every rank and sliced, and the model runs under `mesh.activate` (halo
 rows for every conv wider than 1x1, GroupNorm statistics all-reduced).
 The samplers are per pixel after the model call. Rank 0 gathers the rows.
-NoiseDiffNet only: the UNet_PosEmbV2 family raises under a shard
-(ROADMAP.md, Queue 1 item 2).
+Any model of the port runs so: NoiseDiffNet and the UNet_PosEmbV2 family
+are built from the same blocks.
 """
 from __future__ import annotations
 

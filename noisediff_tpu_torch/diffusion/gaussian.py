@@ -205,7 +205,14 @@ class GaussianDiffusion:
         of the model output against the objective's target, times
         loss_weight[t], averaged over the batch; pred_x0 adds the L1 term on
         the per-channel spatial means (reference :524-528). `noise` defaults
-        to a standard normal draw from `generator`."""
+        to a standard normal draw from `generator`.
+
+        Under a spatial shard (`parallel.mesh.activate`) the tensors are this
+        rank's rows of the frame: each sample's squared error (and, for
+        pred_x0, each channel's sums of output and target) is summed over
+        the rows, all-reduced over the spatial line (differentiably) and
+        divided by the frame's count, so every rank returns the whole
+        frame's loss."""
         if noise is None:
             noise = torch.randn(x_start.shape, generator=generator, device=x_start.device)
         x = self.q_sample(x_start, t, noise)
@@ -216,10 +223,23 @@ class GaussianDiffusion:
             target = x_start
         else:
             target = self.predict_v(x_start, t, noise)
-        loss = (model_out - target).square().mean(dim=tuple(range(1, model_out.ndim)))
+        shard = mesh.spatial()
+        if shard is None:
+            loss = (model_out - target).square().mean(dim=tuple(range(1, model_out.ndim)))
+        else:
+            b, h, w, c = model_out.shape
+            pixels = shard.at_scale(h)[1] * w
+            loss = mesh.all_reduce_sum((model_out - target).square().sum(dim=(1, 2, 3)),
+                                       shard.group, mesh.LOSS_SPAN) / (pixels * c)
         loss = (loss * self.loss_weight[t]).mean()
         if self.objective == "pred_x0":
-            loss = loss + (model_out.mean(dim=(1, 2)) - target.mean(dim=(1, 2))).abs().mean()
+            if shard is None:
+                means = torch.stack([model_out.mean(dim=(1, 2)), target.mean(dim=(1, 2))])
+            else:
+                means = mesh.all_reduce_sum(
+                    torch.stack([model_out.sum(dim=(1, 2)), target.sum(dim=(1, 2))]),
+                    shard.group, mesh.LOSS_SPAN) / pixels
+            loss = loss + (means[0] - means[1]).abs().mean()
         return loss
 
     def loss(self, img, condition: Condition = None, t: Optional[torch.Tensor] = None,
@@ -227,8 +247,12 @@ class GaussianDiffusion:
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Training objective (reference forward :534-542): t uniform in
         [0, T) from `generator` unless given, the image normalised, then
-        p_losses. img: (B, H, W, C) NHWC."""
+        p_losses. img: (B, H, W, C) NHWC; under a spatial shard this rank's
+        rows of the frame, whose height is held to image_size."""
         b, h, w = img.shape[:3]
+        shard = mesh.spatial()
+        if shard is not None:
+            h = shard.at_scale(h)[1]
         if h != self.image_size or w != self.image_size:
             raise ValueError(f"height/width of image must be {self.image_size}, got {(h, w)}")
         if t is None:

@@ -22,10 +22,16 @@ one the kernel takes. The kernels take every pixel count. A wrapper given
 a CUDA tensor launches its kernel or raises; nothing falls back per call.
 
 Under a spatial shard (`parallel.mesh.activate`, the frame's rows split
-over the ranks of a process group) every conv wider than 1x1 takes its
+over the ranks of a spatial line) every conv wider than 1x1 takes its
 halo rows from the neighbouring ranks before it convolves, and every
 GroupNorm all-reduces its statistics over the ranks; the per-pixel blocks
-(the attention tail, the 1x1 convs, the heads) need nothing.
+(the attention tail, the 1x1 convs, the heads) need nothing. Each of those
+collectives has its backward, so a shard trains. On the model axis
+(`mesh.shard_parameters`) a `Conv2d`, `Linear` or `Downsample` whose
+weight holds a block of its output channels computes those channels and
+all-gathers the rest (`_column_parallel`); the kernels that read a whole
+weight (the attention tail's FF and projection, the heads) get it
+all-gathered (`whole_weight`).
 
 Stride-1 SAME convolutions can take their weight gradient from the
 conv_wgrad kernel instead of cuDNN, under the JAX package's variables
@@ -141,6 +147,36 @@ def wgrad_channels_ok(ci: int, co: int) -> bool:
     return ci >= 32 and co >= 32
 
 
+# conv_wgrad sums its taps over one shard's rows: the JAX conv_wgrad_p
+# refuses spatially sharded activations with this message
+# (conv_wgrad.py:200-204), and so does the port
+WGRAD_SPATIAL_ERROR = (
+    "conv_wgrad: spatially-sharded activations are not supported in the training graph "
+    "(halo taps would drop cross-shard pairs); shard the batch axis only, or set "
+    "NOISEDIFF_WGRAD=xla")
+
+
+def _column_parallel(tp, x, compute, bias, dim: int):
+    """A column-parallel layer of the model axis: compute(x) on this
+    rank's block of the output channels (no bias), every model rank's
+    channels all-gathered along `dim` (1: C of a channels-last map; -1:
+    the last dim),
+    then the whole bias (a replicated parameter) added. The gradient of x
+    is summed over the model line, its output's kept to this rank's
+    block."""
+    y = mesh.tp_output(compute(mesh.tp_input(x, tp)), tp, dim)
+    if bias is None:
+        return y
+    b = bias.to(y.dtype)
+    return y + (b[:, None, None] if dim == 1 else b)
+
+
+def whole_weight(module: nn.Module) -> torch.Tensor:
+    """`module.weight`, all-gathered where the model axis split it, for a
+    kernel that reads the whole weight."""
+    return mesh.tp_weight(module.weight, module.tp)
+
+
 class _ConvWgrad(torch.autograd.Function):
     """A stride-1 SAME conv whose forward is F.conv2d and whose backward
     takes dx from PyTorch's conv input gradient (as the JAX package keeps
@@ -175,9 +211,14 @@ class _ConvWgrad(torch.autograd.Function):
 class Conv2d(nn.Conv2d):
     """Conv with SAME padding for odd kernels, run in the input's dtype.
     A stride-1 1x1 or 3x3 conv takes the conv_wgrad route where
-    `wgrad_route` allows it. Under a spatial shard a k x k conv (k > 1)
-    takes k // 2 rows from each neighbouring rank (`mesh.halo_rows`) and
-    pads only along W."""
+    `wgrad_route` allows it, except under a spatial shard, where that
+    raises (`WGRAD_SPATIAL_ERROR`). Under a spatial shard a k x k conv
+    (k > 1) takes k // 2 rows from each neighbouring rank
+    (`mesh.halo_rows`) and pads only along W. With `tp` set
+    (`mesh.shard_parameters`) the weight is this rank's block of the
+    output channels and the conv is column-parallel."""
+
+    tp = None  # the model axis's ModelShard where the weight is a block
 
     def __init__(self, cin: int, cout: int, ks: int, stride: int = 1,
                  padding: Optional[int] = None, bias: bool = True):
@@ -195,7 +236,7 @@ class Conv2d(nn.Conv2d):
         if not (torch.is_grad_enabled() and self.weight.requires_grad):
             return False
         ks = self.kernel_size[0]
-        ci, co = self.in_channels, self.out_channels
+        co, ci = self.weight.shape[:2]  # this rank's block on the model axis
         return (self.stride == (1, 1) and ks in (1, 3) and self.padding == (ks // 2, ks // 2)
                 and x.dtype == torch.bfloat16 and ci % 16 == 0 and co % 16 == 0
                 and wgrad_channels_ok(ci, co) and wgrad_kernel_on(x, self.training))
@@ -205,12 +246,21 @@ class Conv2d(nn.Conv2d):
         adds (Block folds it into the groupnorm_silu kernel)."""
         bias = self.bias if with_bias else None
         shard = mesh.spatial()
-        if shard is not None and self.kernel_size[0] > 1:
-            return self._sharded(x, bias, shard)
-        if self.wgrad_route(x):
-            return _ConvWgrad.apply(x, self.weight, bias, self.padding[0])
-        b = None if bias is None else bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+        wgrad = self.wgrad_route(x)
+        if wgrad and shard is not None:
+            raise ValueError(WGRAD_SPATIAL_ERROR)
+
+        def conv(x, bias=None):
+            if shard is not None and self.kernel_size[0] > 1:
+                return self._sharded(x, bias, shard)
+            if wgrad:
+                return _ConvWgrad.apply(x, self.weight, bias, self.padding[0])
+            b = None if bias is None else bias.to(x.dtype)
+            return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+
+        if self.tp is not None:
+            return _column_parallel(self.tp, x, conv, bias, 1)
+        return conv(x, bias)
 
     def _sharded(self, x, bias, shard):
         """This rank's rows of the conv: the rows with their halo, padded
@@ -224,9 +274,15 @@ class Conv2d(nn.Conv2d):
 
 
 class Linear(nn.Linear):
-    """Linear run in the input's dtype."""
+    """Linear run in the input's dtype; column-parallel with `tp` set, as
+    `Conv2d`."""
+
+    tp = None
 
     def forward(self, x):
+        if self.tp is not None:
+            return _column_parallel(self.tp, x, lambda x: F.linear(x, self.weight.to(x.dtype)),
+                                    self.bias, -1)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
 
@@ -312,13 +368,27 @@ class _GNCoeffs(torch.autograd.Function):
     (blocks._gn_coeffs_primal of the JAX package). The backward is the
     closed form of the JAX `_gnc_bwd`: dx = ds_c + 2 x dsq_c in x's dtype,
     every other tensor (B, C)-sized, so autograd never materialises an
-    activation-sized fp32 chain. x: (B, H, W, C)."""
+    activation-sized fp32 chain. x: (B, H, W, C).
+
+    Under a spatial shard x is this rank's rows and the statistics are the
+    frame's: with s_r, sq_r this rank's gn_stats sums (one launch on its
+    rows), S = sum_r s_r and SQ = sum_r sq_r (one all-reduce of the
+    stacked pair over the spatial line) give (a, bb) on every rank with the
+    frame's count. Every rank's a and bb are used on its own rows, so the
+    gradient of S is the sum over the ranks of each rank's (dS_r, dSQ_r)
+    from its (da, dbb); since dS / ds_r = 1, ds_r = dS = sum_r dS_r (one
+    all-reduce in the backward, the JAX psum of gn_grad_stats_p), and
+    dx_r = ds_r + 2 x_r dsq_r. The scale's and bias's gradients are this
+    rank's share; DDP sums the shares."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, groups, eps, stats):
+    def forward(ctx, x, scale, bias, groups, eps, stats, shard):
         b, h, w, c = x.shape
         s_c, sq_c = stats(x)
-        ctx.groups, ctx.eps, ctx.cnt = groups, eps, h * w * (c // groups)
+        if shard is not None:
+            s_c, sq_c = mesh.all_reduce_sum(torch.stack([s_c, sq_c]), shard.group).unbind()
+            h = shard.at_scale(h)[1]  # the whole frame's rows
+        ctx.groups, ctx.eps, ctx.cnt, ctx.shard = groups, eps, h * w * (c // groups), shard
         ctx.save_for_backward(x, scale, s_c, sq_c)
         return _coefficients(s_c, sq_c, scale, bias, groups, ctx.cnt, eps)
 
@@ -340,9 +410,12 @@ class _GNCoeffs(torch.autograd.Function):
         per = s_c.shape[1] // groups
         ds_c = (dmean_g / cnt).repeat_interleave(per, dim=1)
         dsq_c = (dvar_g / cnt).repeat_interleave(per, dim=1)
+        if ctx.shard is not None:
+            ds_c, dsq_c = mesh.all_reduce_sum(torch.stack([ds_c, dsq_c]),
+                                              ctx.shard.group).unbind()
         dt = x.dtype
         dx = x * (2.0 * dsq_c)[:, None, None, :].to(dt) + ds_c[:, None, None, :].to(dt)
-        return dx, dscale, dbias, None, None, None
+        return dx, dscale, dbias, None, None, None, None
 
 
 class _GNApply(torch.autograd.Function):
@@ -399,9 +472,12 @@ class GroupNorm(nn.Module):
     Under a spatial shard (`mesh.spatial`) x is this rank's rows of the
     frame: the fp32 per-channel sums of the shard (the gn_stats kernel, or
     its plain version), all-reduced over the ranks, give the coefficients
-    with the whole frame's pixel count; then the per-sample FiLM folded in
-    and the groupnorm_silu_apply kernel, or the per-pixel FiLM and SiLU in
-    x's dtype. The conv bias stays on the conv there."""
+    with the whole frame's pixel count. Training takes the training route
+    above with those statistics (`_GNCoeffs`, whose backward all-reduces
+    the sums' gradient; gn_grad_stats sums this rank's rows). Evaluation
+    folds the per-sample FiLM into them and runs the groupnorm_silu_apply
+    kernel, or the per-pixel FiLM and SiLU in x's dtype. The conv bias
+    stays on the conv there."""
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
@@ -426,10 +502,10 @@ class GroupNorm(nn.Module):
             raise ValueError("GroupNorm adds a conv bias only on the groupnorm_silu kernel's "
                              "route (folds_bias)")
         shard = mesh.spatial()
+        if self.training:
+            return self._train_forward(x, scale_shift, per_pixel, shard)
         if shard is not None:
             return self._sharded(x, scale_shift, per_pixel, shard)
-        if self.training:
-            return self._train_forward(x, scale_shift, per_pixel)
         if per_pixel:
             return self._per_pixel_film(x, scale_shift)
         fs = fsh = None
@@ -441,11 +517,11 @@ class GroupNorm(nn.Module):
                self.eps, conv_bias)
         return to_nchw(y.view(b, h, w, c))
 
-    def _train_forward(self, x, scale_shift, per_pixel: bool):
+    def _train_forward(self, x, scale_shift, per_pixel: bool, shard):
         xh = to_nhwc(x)
         stats, grad_stats = ((gn_stats, gn_grad_stats) if self.kernels
                              else (reference_gn_stats, reference_gn_grad_stats))
-        a, bb = _GNCoeffs.apply(xh, self.weight, self.bias, self.groups, self.eps, stats)
+        a, bb = _GNCoeffs.apply(xh, self.weight, self.bias, self.groups, self.eps, stats, shard)
         if scale_shift is not None and not per_pixel:
             a, bb = _film_fold(a, bb, scale_shift)
         y = to_nchw(_GNApply.apply(xh, a, bb, grad_stats))
@@ -459,7 +535,7 @@ class GroupNorm(nn.Module):
         b, c, h, w = x.shape
         xh = to_nhwc(x)
         stats = gn_stats if self.kernels else reference_gn_stats
-        s_c, sq_c = mesh.all_reduce_sum(torch.stack(stats(xh)))
+        s_c, sq_c = mesh.all_reduce_sum(torch.stack(stats(xh)), shard.group)
         cnt = shard.at_scale(h)[1] * w * (c // self.groups)  # the whole frame's rows
         a, bb = _coefficients(s_c, sq_c, self.weight.float(), self.bias.float(), self.groups, cnt,
                               self.eps)
@@ -608,9 +684,9 @@ class AttnBlock(nn.Module):
         ff1, ff2 = self.ff.net[0][0], self.ff.net[2]
         tail = fused_attn_tail if self.kernel else reference_attn_tail
         out = tail(
-            to_nhwc(x), tok, self.norm2.weight, self.norm2.bias, ff1.weight, ff1.bias,
-            ff2.weight, ff2.bias, weight_matrix(self.proj_out.weight), self.proj_out.bias,
-            self.norm2.eps,
+            to_nhwc(x), tok, self.norm2.weight, self.norm2.bias, whole_weight(ff1), ff1.bias,
+            whole_weight(ff2), ff2.bias, weight_matrix(whole_weight(self.proj_out)),
+            self.proj_out.bias, self.norm2.eps,
         )
         return to_nchw(out)
 
@@ -713,6 +789,9 @@ class Downsample(nn.Sequential):
         o, c4 = conv.weight.shape[:2]
         w = weight_view(conv.weight, (o, c4 // 4, 2, 2), (conv.weight.stride(0), 4, 2, 1))
         w = w.to(x.dtype)
+        if conv.tp is not None:
+            return _column_parallel(conv.tp, x, lambda x: F.conv2d(x, w, None, stride=2),
+                                    conv.bias, 1)
         return F.conv2d(x, w, conv.bias.to(x.dtype), stride=2)
 
 

@@ -54,6 +54,7 @@ from .blocks import (
     runs_kernel,
     to_nhwc,
     weight_matrix,
+    whole_weight,
 )
 
 
@@ -193,10 +194,11 @@ class NoiseDiffNet(nn.Module):
 
     def head_weights(self) -> Tuple[torch.Tensor, ...]:
         """(w1, b1, w2, b2, wr, br): shot_mlp3's fc1 and fc2 and final_conv
-        in PyTorch (out, in) layout, the dual head's parameters."""
+        in PyTorch (out, in) layout, the dual head's parameters (whole,
+        where the model axis split them)."""
         fc1, fc2 = self.shot_mlp3.fc1, self.shot_mlp3.fc2
-        return (weight_matrix(fc1.weight), fc1.bias, weight_matrix(fc2.weight), fc2.bias,
-                weight_matrix(self.final_conv.weight), self.final_conv.bias)
+        return (weight_matrix(whole_weight(fc1)), fc1.bias, weight_matrix(whole_weight(fc2)),
+                fc2.bias, weight_matrix(whole_weight(self.final_conv)), self.final_conv.bias)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 condition: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -17,6 +17,21 @@ draws with one key for the whole batch: a step on `world` ranks is the
 one-process step on the concatenated batch. The logged losses are their
 means over the ranks, as the JAX step's loss is the global batch's;
 `grad_norm` is read after the all-reduce, so it is the same on every rank.
+
+On a grid (`parallel.mesh.make_mesh`, the JAX data x spatial x model
+mesh) the diffusion step takes this rank's rows of the batch and of the
+frame (`Grid.local`), draws t for the global batch and the noise for the
+global batch and the whole frame and keeps its rows of both, and runs the
+model under the spatial shard. DDP wraps the model over the replica group
+(data x spatial); the model axis's parameter blocks are already in the
+model (`mesh.shard_parameters`). DDP averages over data x spatial, where the
+spatial ranks' shares must add: each spatial rank's loss is the whole
+frame's (its rows' sums all-reduced in `p_losses`), and the all-reduce's
+backward hands every rank's rows the spatial size times their gradient,
+which DDP's mean takes back, so the gradients are the one-process
+gradients of the global batch's loss. The whole parameters' gradients are
+then averaged over the model line, so the model ranks' copies of them stay
+bit-equal (`mesh.average_replicated_grads`).
 """
 from __future__ import annotations
 
@@ -26,7 +41,8 @@ import torch
 
 from ..diffusion.gaussian import GaussianDiffusion
 from ..ops import sna
-from ..parallel.mesh import SINGLE, Shard, all_reduce_mean
+from ..parallel import mesh
+from ..parallel.mesh import SINGLE, Grid, Shard, all_reduce_mean
 
 # --generation_result -> the batch key the diffusion learns to generate
 TARGET_KEYS = {"noise": "noise", "image": "noisy_img"}
@@ -43,26 +59,46 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 def grad_norm(params) -> torch.Tensor:
-    """Global L2 norm of the gradients (optax.global_norm)."""
-    grads = [p.grad.float() for p in params if p.grad is not None]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    """Global L2 norm of the gradients (optax.global_norm): a parameter
+    the model axis split (`mesh.model_shard_of`) adds the squares of every
+    rank's block, summed over its model line; the others count once."""
+    whole = [p.grad.float() for p in params if p.grad is not None
+             and mesh.model_shard_of(p) is None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(whole)))
+    split = [p for p in params if p.grad is not None and mesh.model_shard_of(p) is not None]
+    if not split:
+        return norm
+    sq = torch.stack(torch._foreach_norm([p.grad.float() for p in split])).square().sum()
+    sq = mesh.all_reduce_sum(sq, mesh.model_shard_of(split[0]).group, mesh.TP_REDUCE_SPAN)
+    return torch.sqrt(norm.square() + sq)
 
 
 def make_diffusion_train_step(diffusion: GaussianDiffusion, optimizer: torch.optim.Optimizer,
                               generation_result: str = "noise",
-                              shard: Shard = SINGLE) -> Callable:
+                              shard: Shard = SINGLE, grid: Optional[Grid] = None) -> Callable:
     """Returns step(batch, generator, draws=None) -> {'diffusion_loss',
     'grad_norm'} (device scalars): the loss on batch[target] with the
     condition (clean_img, coord, iso_ratio_idx), its gradients, one Adam
-    step. The timesteps and the noise are drawn for the global batch from
-    `generator`, t first, or given as `draws`, the global batch's (t,
-    noise) (a caller holding another framework's draws); this rank keeps
-    its rows. `diffusion`'s model is the DDP-wrapped one where `shard` has
-    more than one rank."""
+    step. The timesteps and the noise are drawn for the global batch (and
+    the whole frame) from `generator`, t first, or given as `draws`, the
+    global batch's (t, noise) (a caller holding another framework's
+    draws); this rank keeps its rows. `diffusion`'s model is the
+    DDP-wrapped one where `shard` has more than one rank. On a `grid` (its
+    data axis replaces `shard`) the batch is this rank's part
+    (`Grid.local`) and the frame's height is the diffusion's image_size."""
     if generation_result not in TARGET_KEYS:
         raise ValueError(f"--generation_result must be one of {sorted(TARGET_KEYS)}")
+    if grid is not None and shard is not SINGLE:
+        raise ValueError("a grid's data axis is the shard: pass one of them")
     target_key = TARGET_KEYS[generation_result]
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    spatial = None
+    if grid is not None:
+        shard, spatial = grid.data, grid.spatial(diffusion.image_size)
+
+    def rows(x):  # this rank's rows of a global draw: batch, then frame
+        x = shard.rows(x)
+        return x if spatial is None or x.ndim < 4 else spatial.rows(x)
 
     def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
              draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -70,9 +106,10 @@ def make_diffusion_train_step(diffusion: GaussianDiffusion, optimizer: torch.opt
         img = batch[target_key]
         if draws is None:
             n = shard.world * img.shape[0]
+            h = img.shape[1] if spatial is None else spatial.height
             t = torch.randint(0, diffusion.num_timesteps, (n,), generator=generator,
                               device=img.device)
-            noise = torch.randn((n,) + tuple(img.shape[1:]), generator=generator,
+            noise = torch.randn((n, h) + tuple(img.shape[2:]), generator=generator,
                                 device=img.device)
         else:
             t, noise = (d.to(img.device) for d in draws)
@@ -82,8 +119,10 @@ def make_diffusion_train_step(diffusion: GaussianDiffusion, optimizer: torch.opt
             "position": batch["coord"],
         }
         optimizer.zero_grad(set_to_none=True)
-        loss = diffusion.loss(img, condition, t=shard.rows(t), noise=shard.rows(noise))
+        with mesh.activate(spatial):
+            loss = diffusion.loss(img, condition, t=rows(t), noise=rows(noise))
         loss.backward()
+        mesh.average_replicated_grads(params, None if grid is None else grid.model)
         norm = grad_norm(params)
         optimizer.step()
         return {"diffusion_loss": all_reduce_mean(loss.detach(), shard), "grad_norm": norm}

@@ -28,7 +28,7 @@ from noisediff_tpu.models import NoiseDiffNet as JaxNet
 from noisediff_tpu.ops.coords import make_coord as jax_make_coord
 from noisediff_tpu_torch.diffusion import fullframe
 from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
-from noisediff_tpu_torch.models import NoiseDiffNet, UNet_PosEmbV2_CameraCond
+from noisediff_tpu_torch.models import NoiseDiffNet, blocks
 from noisediff_tpu_torch.parallel import mesh
 from torch_port_util import ATOL, RTOL, load_port, random_params, run_ranks
 
@@ -152,7 +152,7 @@ import numpy as np
 import torch
 from noisediff_tpu_torch.diffusion import fullframe
 from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
-from noisediff_tpu_torch.models import NoiseDiffNet
+from noisediff_tpu_torch.models import NoiseDiffNet, blocks
 from noisediff_tpu_torch.ops.coords import make_coord
 from noisediff_tpu_torch.parallel import mesh
 
@@ -273,26 +273,23 @@ def test_activate_world_one_is_a_no_op():
     assert mesh.spatial_shard(32) is None  # no process group
 
 
-def test_sharded_forward_refuses_autograd():
-    """The sharded forward has no backward: under a shard with autograd on,
-    the blocks raise and name ROADMAP."""
+def test_sharded_forward_refuses_autograd(monkeypatch):
+    """Under a shard autograd is on (the sharded model trains: the
+    adjoints are held in test_torch_port_spatial_train.py), but the
+    conv_wgrad route refuses it, as the JAX conv_wgrad_p does; without
+    autograd the same conv runs."""
+    monkeypatch.setenv("NOISEDIFF_WGRAD", "pallas")
     shard = mesh.SpatialShard(0, 2, 32)
+    conv = blocks.Conv2d(32, 32, 1).train()
+    x = torch.zeros(1, 32, 16, 8, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
     with mesh.activate(shard):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mesh.spatial()
+        assert mesh.spatial() == shard
+        with pytest.raises(ValueError, match="shard the batch axis only"):
+            conv(x)
         with torch.no_grad():
-            assert mesh.spatial() == shard
+            assert conv(x).shape == (1, 32, 16, 8)
     assert mesh.spatial() is None
-
-
-def test_posemb_family_refuses_a_shard():
-    net = UNet_PosEmbV2_CameraCond(dim=16).eval()
-    x = torch.zeros(1, 16, 16, 4)
-    cond = {"clean_img": x, "position": torch.zeros(1, 16, 16, 2),
-            "iso_ratio_idx": torch.zeros(1, dtype=torch.long)}
-    with mesh.activate(mesh.SpatialShard(0, 2, 32)), torch.no_grad():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            net(x, torch.zeros(1, dtype=torch.long), cond)
 
 
 @pytest.mark.parametrize("world", [2, 3])
