@@ -175,6 +175,18 @@ this script starts with torchrun's environment, `spawn_ranks`):
            dual_head, nothing else), NOISEDIFF_WGRAD=pallas refused under a
            spatial shard; each rank's step ms, peak memory, parameter and
            Adam bytes, and the collectives' count and host ms a step
+The closed-loop learning gate (scripts/port_learning_gate.py):
+  gate     (after train_sharded) the seven kernels against their plain
+           versions at the gate's shapes: attn_tail, groupnorm_silu and
+           dual_head at B 16 (training) and B 32 (generation) over 64^2 x
+           48 .. 8^2 x 384 (the full frame's checks), attn_tail backward,
+           gn_stats and gn_grad_stats at B 16, ddim_head at B 32; then the
+           gate at its smoke scale through the four CLIs and eval_kld in
+           bf16 (dim 48, crop 64, 50 diffusion and 15 LSID epochs),
+           counted from zero: the JAX
+           slow test's three thresholds (KLD halved, generated std below
+           0.3, PSNR gain above 1 dB) and each of the seven kernels
+           launched (launches_gate in the kernels line)
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -431,9 +443,7 @@ def phase_kernels(seed: int):
     # dual_head at full resolution
     c = DIM
     x, sa, sb = (randn(BATCH, CROP, CROP, c, dtype=torch.bfloat16) for _ in range(3))
-    p = (randn(c, c, scale=c ** -0.5), 0.1 * randn(c), randn(4, c, scale=c ** -0.5),
-         0.1 * randn(4), randn(4, c, scale=c ** -0.5), 0.1 * randn(4))
-    args = (x, sa, sb) + p
+    args = (x, sa, sb) + head_params(randn, c)
     got = fused_dual_head(*args)
     err = compare("dual_head", got, reference_dual_head(*args))
     if not torch.equal(got, fused_dual_head(*args)):
@@ -442,9 +452,7 @@ def phase_kernels(seed: int):
     dev_ms = time_device_ms(lambda: fused_dual_head(*args))
     host_ms = host_ms_per_call(lambda: fused_dual_head(*args))
     plain = time_ms(lambda: reference_dual_head(*args), reps=5)
-    pix = BATCH * CROP * CROP
-    moved = 3 * nbytes(x) + pix * 4 * 4 + (c * c + 8 * c + c + 8) * 4
-    b_ms, b_by = bound(moved, 2 * pix * (c * c + 8 * c), PEAK_BF16_FLOPS)
+    b_ms, b_by = bound(*head_work(x), PEAK_BF16_FLOPS)
     results["dual_head"] = [dict(shape=[BATCH, CROP, CROP, c], calls=1, ms=ms, device_ms=dev_ms,
                                  host_ms=host_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                  max_abs_err=err)]
@@ -459,7 +467,8 @@ def phase_kernels(seed: int):
     results["attn_tail"] += fwd
     results["attn_tail_bwd"] += bwd
     torch.cuda.empty_cache()
-    for name, rows in kernels_fullframe(randn).items():
+    for name, rows in kernels_stages(randn, 1, FULLFRAME_STAGES, "full frame",
+                                     "fullframe_calls").items():
         results[name] += rows
     torch.cuda.empty_cache()
     sharded = kernels_sharded(randn)
@@ -685,8 +694,7 @@ def kernels_ddim(randn):
 
     c = DIM
     x, sa, sb = (randn(BATCH, CROP, CROP, c, dtype=torch.bfloat16) for _ in range(3))
-    p = (randn(c, c, scale=c ** -0.5), 0.1 * randn(c), randn(4, c, scale=c ** -0.5),
-         0.1 * randn(4), randn(4, c, scale=c ** -0.5), 0.1 * randn(4))
+    p = head_params(randn, c)
     xt, z = randn(BATCH, CROP, CROP, 4), randn(BATCH, CROP, CROP, 4)
     ac = make_schedule("sigmoid2", 1000).alphas_cumprod
     alpha, alpha_next = ac[499], ac[489]
@@ -704,10 +712,8 @@ def kernels_ddim(randn):
         dev_ms = time_device_ms(lambda: fused_ddim_head_update(*args))
         host_ms = host_ms_per_call(lambda: fused_ddim_head_update(*args))
         plain = time_ms(lambda: reference_ddim_head_update(*args), reps=5)
-        pix = BATCH * CROP * CROP
-        moved = 3 * nbytes(x) + 2 * nbytes(xt) + (nbytes(z) if sigma else 0) \
-            + (c * c + 8 * c + c + 8) * 4
-        b_ms, b_by = bound(moved, 2 * pix * (c * c + 8 * c), PEAK_BF16_FLOPS)
+        io = 2 * nbytes(xt) + (nbytes(z) if sigma else 0)
+        b_ms, b_by = bound(*head_work(x, io), PEAK_BF16_FLOPS)
         # the main path (eta 0) runs one call per evaluation; the noisy
         # variant is checked and timed, not counted
         rows.append(dict(shape=[BATCH, CROP, CROP, c], sigma=sigma, calls=0 if sigma else 1,
@@ -995,108 +1001,123 @@ def attn_tail_scale(x, want, got):
     return (w - xf).abs() + xf.abs(), {"n": int(past.sum()), "worst": worst}
 
 
-def kernels_fullframe(randn):
-    """attn_tail, groupnorm_silu (each (groups, FiLM) the evaluation uses)
-    and dual_head at the full frame's stage shapes (B 1; up to 145 M
-    elements a sample at 1424 x 2128 x 48): against the plain versions,
-    two calls bit-equal, one groupnorm_silu launch a call, per call and on
-    the card's clock beside the bound. Rows have calls 0 (no per-evaluation
-    sum at the canonical shape) and `fullframe_calls`, the calls of one
-    full-frame evaluation."""
+def kernels_stages(randn, b, stages, label, calls_key, tag=None):
+    """attn_tail, groupnorm_silu (each (groups, FiLM) the evaluation uses,
+    with the conv bias) and dual_head at batch b over the UNet's stages
+    (H, W, C): against the plain versions, two calls bit-equal, one
+    groupnorm_silu launch a call, per call and on the card's clock beside
+    the bound. Rows have calls 0 (no per-evaluation sum at the canonical
+    shape), `calls_key`, the calls of one evaluation at these stages, and
+    `tag`'s fields; label names the shapes in the log."""
     import torch
 
     from noisediff_tpu_torch.ops.kernels import (
         fused_attn_tail, fused_dual_head, fused_groupnorm_film_silu, reference_attn_tail,
         reference_dual_head, reference_groupnorm_film_silu)
 
+    tag = tag or {}
     rows = {"attn_tail": [], "groupnorm_silu": [], "dual_head": []}
-    for st, (h, w, c) in enumerate(FULLFRAME_STAGES):
-        x = randn(1, h, w, c, scale=1.5, dtype=torch.bfloat16) + 0.3
+    for st, (h, w, c) in enumerate(stages):
+        x = randn(b, h, w, c, scale=1.5, dtype=torch.bfloat16) + 0.3
         args = attn_tail_args(randn, x)
         got = fused_attn_tail(*args)
         want = reference_attn_tail(*args)
         scale, cancel = attn_tail_scale(x, want, got)
         err = compare("attn_tail", got, want, scale=scale)
         if not torch.equal(got, fused_attn_tail(*args)):
-            raise AssertionError(f"attn_tail full frame {h}x{w}x{c}: two calls differ")
+            raise AssertionError(f"attn_tail {label} {b}x{h}x{w}x{c}: two calls differ")
         del got, want, scale
         ms = time_ms(lambda: fused_attn_tail(*args), reps=5)
         dev_ms = time_device_ms(lambda: fused_attn_tail(*args), n=5)
         plain = time_ms(lambda: reference_attn_tail(*args), reps=2, warmup=1)
         b_ms, b_by = attn_tail_bound(x)
-        rows["attn_tail"].append(dict(shape=[1, h, w, c], calls=0,
-                                      fullframe_calls=ATTN_PER_EVAL[st], ms=ms,
+        rows["attn_tail"].append(dict(shape=[b, h, w, c], calls=0,
+                                      **{calls_key: ATTN_PER_EVAL[st]}, **tag, ms=ms,
                                       device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
                                       bound_by=b_by, max_abs_err=err,
                                       past_output_scale=cancel))
-        log(f"  full frame attn_tail 1x{h}x{w}x{c}: {ms:.4f} ms, dev {dev_ms:.4f} "
+        log(f"  {label} attn_tail {b}x{h}x{w}x{c}: {ms:.4f} ms, dev {dev_ms:.4f} "
             f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; plain {plain:.4f}), max abs "
             f"err {err:.3g}, bit-equal across two calls; {cancel['n']} element(s) past atol + "
             f"rtol |out|, where the residual add cancels: {cancel['worst']}")
         del args
-        xg = x.reshape(1, h * w, c)
+        xg = x.reshape(b, h * w, c)
         for gst, groups, film, count in GN_PER_EVAL:
             if gst != st:
                 continue
             gamma, beta, bias = 1.0 + 0.1 * randn(c), 0.1 * randn(c), 0.3 * randn(c)
             fs = fsh = None
             if film:
-                t = (0.2 * randn(1, 2 * c)).to(torch.bfloat16)
+                t = (0.2 * randn(b, 2 * c)).to(torch.bfloat16)
                 fs, fsh = t[:, :c], t[:, c:]
             gargs = (xg, gamma, beta, fs, fsh, groups, 1e-5, bias)
             n0 = fused_groupnorm_film_silu.launches
             got = fused_groupnorm_film_silu(*gargs)
             if fused_groupnorm_film_silu.launches != n0 + 1:
-                raise AssertionError(f"groupnorm_silu full frame {h}x{w}x{c}: more than one "
+                raise AssertionError(f"groupnorm_silu {label} {b}x{h * w}x{c}: more than one "
                                      "launch in a call")
             err = compare("groupnorm_silu", got, reference_groupnorm_film_silu(*gargs))
             if not torch.equal(got, fused_groupnorm_film_silu(*gargs)):
-                raise AssertionError(f"groupnorm_silu full frame {h}x{w}x{c}: two calls differ")
+                raise AssertionError(f"groupnorm_silu {label} {b}x{h * w}x{c}: two calls differ")
             del got
             ms = time_ms(lambda: fused_groupnorm_film_silu(*gargs), reps=5)
             dev_ms = time_device_ms(lambda: fused_groupnorm_film_silu(*gargs), n=5)
             plain = time_ms(lambda: reference_groupnorm_film_silu(*gargs), reps=2, warmup=1)
-            moved = 2 * nbytes(xg) + 3 * c * 4 + (2 * c * 2 if film else 0)
+            moved = 2 * nbytes(xg) + 3 * c * 4 + (2 * b * c * 2 if film else 0)
             b_ms, b_by = bound(moved, 8 * xg.numel(), PEAK_FP32_FLOPS)
             rows["groupnorm_silu"].append(dict(
-                shape=[1, h * w, c], groups=groups, film=film, bias=True, calls=0,
-                fullframe_calls=count, ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err))
-            log(f"  full frame groupnorm_silu 1x{h * w}x{c} G{groups} film={film}: {ms:.4f} ms, "
+                shape=[b, h * w, c], groups=groups, film=film, bias=True, calls=0,
+                **{calls_key: count}, **tag, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+            log(f"  {label} groupnorm_silu {b}x{h * w}x{c} G{groups} film={film}: {ms:.4f} ms, "
                 f"dev {dev_ms:.4f} ({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; plain "
                 f"{plain:.4f}), max abs err {err:.3g}, one launch, bit-equal across two calls")
             del gargs
         if st == 0:
-            sa, sb = (randn(1, h, w, c, dtype=torch.bfloat16) for _ in range(2))
-            p = (randn(c, c, scale=c ** -0.5), 0.1 * randn(c), randn(4, c, scale=c ** -0.5),
-                 0.1 * randn(4), randn(4, c, scale=c ** -0.5), 0.1 * randn(4))
-            hargs = (x, sa, sb) + p
+            sa, sb = (randn(b, h, w, c, dtype=torch.bfloat16) for _ in range(2))
+            hargs = (x, sa, sb) + head_params(randn, c)
             got = fused_dual_head(*hargs)
             err = compare("dual_head", got, reference_dual_head(*hargs))
             if not torch.equal(got, fused_dual_head(*hargs)):
-                raise AssertionError("dual_head full frame: two calls differ")
+                raise AssertionError(f"dual_head {label}: two calls differ")
             del got
             ms = time_ms(lambda: fused_dual_head(*hargs), reps=5)
             dev_ms = time_device_ms(lambda: fused_dual_head(*hargs), n=5)
             plain = time_ms(lambda: reference_dual_head(*hargs), reps=2, warmup=1)
-            pix = h * w
-            moved = 3 * nbytes(x) + pix * 4 * 4 + (c * c + 8 * c + c + 8) * 4
-            b_ms, b_by = bound(moved, 2 * pix * (c * c + 8 * c), PEAK_BF16_FLOPS)
-            rows["dual_head"].append(dict(shape=[1, h, w, c], calls=0, fullframe_calls=1, ms=ms,
-                                          device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
-                                          bound_by=b_by, max_abs_err=err))
-            log(f"  full frame dual_head 1x{h}x{w}x{c}: {ms:.4f} ms, dev {dev_ms:.4f} "
+            b_ms, b_by = bound(*head_work(x), PEAK_BF16_FLOPS)
+            rows["dual_head"].append(dict(shape=[b, h, w, c], calls=0, **{calls_key: 1}, **tag,
+                                          ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+            log(f"  {label} dual_head {b}x{h}x{w}x{c}: {ms:.4f} ms, dev {dev_ms:.4f} "
                 f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; plain {plain:.4f}), max abs "
                 f"err {err:.3g}, bit-equal across two calls")
             del sa, sb, hargs
         del x, xg
         torch.cuda.empty_cache()
     for name, rs in rows.items():
-        dev = sum(r["device_ms"] * r["fullframe_calls"] for r in rs)
-        bnd = sum(r["bound_ms"] * r["fullframe_calls"] for r in rs)
-        log(f"  {name}: {dev:.4f} ms of the card's clock per full-frame evaluation against a "
+        dev = sum(r["device_ms"] * r[calls_key] for r in rs)
+        bnd = sum(r["bound_ms"] * r[calls_key] for r in rs)
+        log(f"  {name}: {dev:.4f} ms of the card's clock per {label} evaluation against a "
             f"bound of {bnd:.4f} ({dev / bnd:.2f}x)")
     return rows
+
+
+def head_params(randn, c):
+    """fc1 (C x C), its bias, fc2 (4 x C), its bias, final_conv (4 x C),
+    its bias: the heads' parameters in fp32."""
+    return (randn(c, c, scale=c ** -0.5), 0.1 * randn(c), randn(4, c, scale=c ** -0.5),
+            0.1 * randn(4), randn(4, c, scale=c ** -0.5), 0.1 * randn(4))
+
+
+def head_work(x, io_bytes=None):
+    """The heads' bytes (x and the shot's a and b read, the parameters, and
+    io_bytes: by default dual_head's 4 fp32 channels written) and
+    operations over x's pixels."""
+    c = x.shape[-1]
+    pix = x.numel() // c
+    if io_bytes is None:
+        io_bytes = pix * 4 * 4
+    return 3 * nbytes(x) + io_bytes + (c * c + 8 * c + c + 8) * 4, 2 * pix * (c * c + 8 * c)
 
 
 # the spatial axis: the full frame's rows over 2 and 4 ranks (one process a
@@ -4053,6 +4074,150 @@ def phase_posemb(seed: int, workdir: str):
     return out
 
 
+# the learning gate (scripts/port_learning_gate.py) at its smoke scale: the
+# gpu scale's dim 48, crop 64, training batch 16 (stages 64^2 x 48 .. 8^2 x
+# 384) and generation batch 32, with its epochs cut
+GATE_TRAIN_B, GATE_GEN_B, GATE_CROP = 16, 32, 64
+GATE_STAGES = [(GATE_CROP >> i, DIM << i) for i in range(4)]
+# the wrappers the gate's default route must launch (conv_wgrad only under
+# NOISEDIFF_WGRAD=pallas, flash_attention on no shipped model)
+GATE_KERNELS = ("attn_tail", "attn_tail_bwd", "gn_stats", "gn_grad_stats", "dual_head",
+                "groupnorm_silu", "ddim_head")
+
+
+def _gate_row(name, shape, what, err, fn, ref, b):
+    """A gate-shape row: calls 0 (it adds to no per-evaluation or per-step
+    sum), the path that gives the shape, per-call times beside the bound."""
+    ms = time_ms(fn, reps=5)
+    plain = time_ms(ref, reps=3, warmup=1)
+    log(f"  gate {name} {list(shape)} ({what}): {ms:.4f} ms (plain {plain:.4f}, bound {b[0]:.4f} "
+        f"{b[1]}), max abs err {err:.3g}")
+    return dict(shape=list(shape), gate=what, calls=0, ms=ms, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], max_abs_err=err)
+
+
+def kernels_gate(randn):
+    """The seven kernels of the gate's default route against their plain
+    versions at the gate's own shapes, which no other phase gives:
+    attn_tail, groupnorm_silu and dual_head through kernels_stages at the
+    training batch (B 16) and the generation batch (B 32), 64^2 x 48 ..
+    8^2 x 384; then what only the gate runs at these shapes: attn_tail's
+    backward, gn_stats and gn_grad_stats at B 16 over the four stages, and
+    the DDIM tail at B 32, 64^2; the stated tolerances, two calls
+    bit-equal."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import (
+        ddim_step_scalars, fused_attn_tail_bwd, fused_ddim_head_update, gn_grad_stats, gn_stats,
+        reference_attn_tail_bwd, reference_ddim_head_update, reference_gn_grad_stats,
+        reference_gn_stats)
+    from noisediff_tpu_torch.ops.schedules import make_schedule
+
+    rows = {name: [] for name in GATE_KERNELS}
+    stages = [(res, res, c) for res, c in GATE_STAGES]
+    for b, what in ((GATE_TRAIN_B, "training"), (GATE_GEN_B, "generation")):
+        for name, rs in kernels_stages(randn, b, stages, f"gate {what}", "eval_calls",
+                                       {"gate": what}).items():
+            rows[name] += rs
+
+    def equal_twice(name, fn, got):
+        again = fn()
+        same = (all(torch.equal(a, b) for a, b in zip(got, again))
+                if isinstance(got, tuple) else torch.equal(got, again))
+        if not same:
+            raise AssertionError(f"gate {name}: two calls differ")
+
+    b = GATE_TRAIN_B
+    for res, c in GATE_STAGES:
+        x = randn(b, res, res, c, scale=1.5, dtype=torch.bfloat16) + 0.3
+        g = randn(b, res, res, c, dtype=torch.bfloat16)
+        args = attn_tail_args(randn, x, g)
+        err, rels = check_attn_tail_bwd(f"gate {tuple(x.shape)}", args)
+        row = _gate_row("attn_tail_bwd", x.shape, "training", err,
+                        lambda: fused_attn_tail_bwd(*args),
+                        lambda: reference_attn_tail_bwd(*args), attn_tail_bwd_bound(x))
+        rows["attn_tail_bwd"].append(dict(row, rel_l2=rels))
+        out_bytes = 2 * b * c * 4
+        for name, fn, ref, sargs, reads in (
+                ("gn_stats", gn_stats, reference_gn_stats, (x,), nbytes(x)),
+                ("gn_grad_stats", gn_grad_stats, reference_gn_grad_stats, (g, x),
+                 2 * nbytes(x))):
+            got = fn(*sargs)
+            err = max(compare_scaled(name, a, w, SUM_RTOL) for a, w in zip(got, ref(*sargs)))
+            equal_twice(name, lambda: fn(*sargs), got)
+            rows[name].append(_gate_row(
+                name, x.shape, "training", err, lambda: fn(*sargs), lambda: ref(*sargs),
+                bound(reads + out_bytes, 3 * x.numel(), PEAK_FP32_FLOPS)))
+        del x, g, args
+    torch.cuda.empty_cache()
+    # a middle step of the gate's DDIM-50 over T 1000, eta 0, at the
+    # generation batch
+    res, c = GATE_STAGES[0]
+    x, sa, sb = (randn(GATE_GEN_B, res, res, c, dtype=torch.bfloat16) for _ in range(3))
+    xt = randn(GATE_GEN_B, res, res, 4)
+    ac = make_schedule("sigmoid2", 1000).alphas_cumprod
+    scal = ddim_step_scalars(ac[499], ac[479], 0.0, (1.0 - ac[479]) ** 0.5)
+    dargs = (x, sa, sb, xt, None) + head_params(randn, c) + (scal,)
+    got = fused_ddim_head_update(*dargs)
+    err = compare("ddim_head", got, reference_ddim_head_update(*dargs))
+    equal_twice("ddim_head", lambda: fused_ddim_head_update(*dargs), got)
+    row = _gate_row("ddim_head", x.shape, "generation", err,
+                    lambda: fused_ddim_head_update(*dargs),
+                    lambda: reference_ddim_head_update(*dargs),
+                    bound(*head_work(x, 2 * nbytes(xt)), PEAK_BF16_FLOPS))
+    rows["ddim_head"].append(dict(row, sigma=0.0, library_ms=None))
+    return rows
+
+
+def phase_gate(seed: int, workdir: str):
+    """The closed-loop learning gate through the port's CLIs at its smoke
+    scale on the card (bf16): the seven kernels checked at its shapes
+    first, then the gate run counted from zero; asserts the JAX slow test's
+    three thresholds and that each of the seven kernels launched."""
+    import importlib.util
+
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    rows = kernels_gate(randn)
+    torch.cuda.empty_cache()
+
+    spec = importlib.util.spec_from_file_location(
+        "port_learning_gate", os.path.join(PORT_DIR, "scripts", "port_learning_gate.py"))
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    reset_launch_counts()
+    t0 = time.time()
+    result = gate.main(["--scale", "smoke", "--seed", str(seed), "--workdir",
+                        os.path.join(workdir, "gate")])
+    seconds = time.time() - t0
+    counts = launch_counts()
+    log(f"  smoke scale {result['config']}: {seconds:.1f} s; stages "
+        f"{ {k: round(v, 1) for k, v in result['seconds'].items()} }")
+    log(f"  KLD untrained {result['kld_untrained']['kld_symmetric']:.6f}, DDIM "
+        f"{result['kld_trained']['kld_symmetric']:.6f} (improvement "
+        f"{result['kld_improvement']:.4f}), DPM-10 "
+        f"{result['kld_trained_dpm']['kld_symmetric']:.6f} (DPM / DDIM "
+        f"{result['dpm_vs_ddim_kld_ratio']:.4f}); generated std "
+        f"{result['generated_noise_std']:.6f}; PSNR noisy {result['psnr_noisy_input']:.4f}, "
+        f"denoised {result['psnr_denoised']:.4f} dB (gain {result['psnr_gain']:.4f}), SSIM "
+        f"{result['ssim_denoised']:.6f}")
+    if result["missed"]:
+        raise AssertionError(f"gate: thresholds missed: {result['missed']}")
+    missing = [name for name in GATE_KERNELS if counts[KERNEL_META[name][0]] == 0]
+    if missing:
+        raise AssertionError(f"gate: {missing} launched no time in the gate run: {counts}")
+    log(f"  thresholds {result['thresholds']} passed; launches: {counts}")
+    return dict(rows=rows, counts=counts, result=result, seconds=seconds)
+
+
 KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
                    "fused_dual_head", "fused_ddim_head_update", "gn_stats", "gn_grad_stats",
                    "conv_wgrad", "flash_attention", "groupnorm_silu_apply")
@@ -4263,6 +4428,15 @@ def main(argv=None) -> int:
         del ref
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        log("[gate] the closed-loop learning gate through the CLIs, smoke scale, bf16")
+        gate = phase_gate(args.seed, workdir)
+        log(f"  gate phase {gate['seconds']:.1f} s of gate run")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for name, rows in gate["rows"].items():
+        results[name] += rows
     log("[attention] blocks.Attention forward and backward, card vs CPU")
     attn = phase_attention(args.seed)
     log("[dim96] a dim-96 NoiseDiffNet forward on its route, card vs CPU")
@@ -4286,7 +4460,7 @@ def main(argv=None) -> int:
     for name in ("attn_tail", "groupnorm_silu", "dual_head", "attn_tail_bwd", "gn_stats",
                  "gn_grad_stats"):
         w = KERNEL_META[name][0]
-        launches[name] = (gc[w] + dc[w] + tc[w] + fc[w] + pc[w] + sc[w], {
+        launches[name] = (gc[w] + dc[w] + tc[w] + fc[w] + pc[w] + sc[w] + gate["counts"][w], {
             "launches_fullframe_sharded": sc[w],
             # the UNet_PosEmbV2 family's CLI runs (posemb phase)
             "launches_posemb": pc[w],
@@ -4301,10 +4475,14 @@ def main(argv=None) -> int:
             "launches_train_sharded": {g: r["counts"][w] for g, r in train_sharded.items()},
             "launches_dist_gen": sum(r["launches"][w] for r in dist_gen["ranks"]),
             "launches_dist_train_world1": dist_train["world1"][0]["launches"][w],
-            "launches_remat_step": remat["launches"][w]})
+            "launches_remat_step": remat["launches"][w],
+            # the learning gate's smoke run (gate phase)
+            "launches_gate": gate["counts"][w]})
     n, n_sh = ddim["counts"]["fused_ddim_head_update"], sdc["fused_ddim_head_update"]
-    launches["ddim_head"] = (n + n_sh, {"launches_per_batch": n / N_BATCHES,
-                                        "launches_fullframe_sharded_ddim": n_sh})
+    n_gate = gate["counts"]["fused_ddim_head_update"]
+    launches["ddim_head"] = (n + n_sh + n_gate, {"launches_per_batch": n / N_BATCHES,
+                                        "launches_fullframe_sharded_ddim": n_sh,
+                                        "launches_gate": n_gate})
     n = sc["groupnorm_silu_apply"]
     launches["groupnorm_silu_apply"] = (n, {
         "launches_per_rank_per_eval": n / (2 * FULLFRAME_STEPS),

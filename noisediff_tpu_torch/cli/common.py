@@ -9,7 +9,6 @@ launcher such as `torchrun` describes (`--launcher pytorch`, or its alias
 """
 from __future__ import annotations
 
-import logging
 import os
 import random
 import time
@@ -18,6 +17,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh
+from ..utils.logging import print_args, setup_logger
 
 
 def set_random_seed(seed: int) -> None:
@@ -87,37 +87,19 @@ def set_precision_flags() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def print_args(args) -> None:
-    for arg in vars(args):
-        logging.info("%s:%s", arg, getattr(args, arg))
-
-
-_RUN_LOG = "noisediff_tpu_torch.run_log"
-
-
 def setup_run_dirs(args, with_logger: bool = True) -> None:
     """<save_folder>/<name> with its vis/ and snapshot/ directories
-    (args.vis_save_dir, args.snapshot_save_dir), and a timestamped log file
-    there that receives this run's log records; the directories and the
-    log file on rank 0 (or the one process) only."""
+    (args.vis_save_dir, args.snapshot_save_dir), and on rank 0 (or the one
+    process) a timestamped log file there that, with stdout, receives this
+    run's log records (`utils.logging.setup_logger`); then logs the
+    arguments, as the JAX package's setup_run_dirs does."""
     args.save_folder = os.path.join(args.save_folder, args.name)
     args.vis_save_dir = os.path.join(args.save_folder, "vis")
     args.snapshot_save_dir = os.path.join(args.save_folder, "snapshot")
-    if getattr(args, "rank", -1) > 0:
-        print_args(args)
-        return
-    os.makedirs(args.vis_save_dir, exist_ok=True)
-    os.makedirs(args.snapshot_save_dir, exist_ok=True)
-    if with_logger:
-        root = logging.getLogger()
-        for h in [h for h in root.handlers if getattr(h, "name", "") == _RUN_LOG]:
-            root.removeHandler(h)
-            h.close()
-        handler = logging.FileHandler(
-            os.path.join(args.save_folder, time.strftime("%Y%m%d_%H%M%S") + ".log"))
-        handler.name = _RUN_LOG
-        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
-        root.addHandler(handler)
-        if root.level > logging.INFO:
-            root.setLevel(logging.INFO)
+    if getattr(args, "rank", -1) <= 0:
+        os.makedirs(args.vis_save_dir, exist_ok=True)
+        os.makedirs(args.snapshot_save_dir, exist_ok=True)
+        if with_logger:
+            setup_logger(os.path.join(args.save_folder,
+                                      time.strftime("%Y%m%d_%H%M%S") + ".log"))
     print_args(args)

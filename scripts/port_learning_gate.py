@@ -1,0 +1,501 @@
+"""Closed-loop learning gate of the PyTorch/CUDA port: the pipeline learns.
+
+The port's counterpart of scripts/learning_gate.py. It synthesises a SID
+tree from a known Poisson-Gaussian noise model, so it needs no download,
+and runs both stages through the port's CLI mains:
+
+  1. the noise-realism KLD (cli/eval_kld) of an untrained NoiseDiffNet's
+     DDIM generations (random init);
+  2. NoiseDiffNet trained through cli/train_diffusion;
+  3. DDIM generation from its EMA weights (ema_final.pth, else
+     net_final.pth) through cli/test_diffusion, and the KLD again;
+  4. DPM-Solver++(2M) generation from the same weights and its KLD;
+  5. LSID trained through cli/train_denoising on the DDIM patches;
+  6. cli/test_denoising.evaluate on the held-out frames beside the noisy
+     input's PSNR.
+
+It writes the JAX gate's JSON keys plus `device`, `card` (nvidia-smi's
+name and power limit), `wgrad_route` (NOISEDIFF_WGRAD), `seconds` by stage,
+`thresholds` and `passed` (the JAX slow test's three thresholds). It runs on
+the card (`--device cuda`, the default; raises without one) in bf16, the
+CLIs' default and the route on which the kernels run, or on the CPU
+(`--device cpu`) in fp32 (`--no_mixed_precision`), as the JAX gate does off
+the TPU. Run as
+
+    python scripts/port_learning_gate.py --scale gpu --workdir /tmp/gate --out gate.json
+    python scripts/port_learning_gate.py --device cpu --scale tiny --workdir /tmp/gate
+
+It exits 1 where a threshold is missed or the DPM leg failed (recorded as
+`dpm_error`, after stage 2 has run). It imports torch, numpy and
+noisediff_tpu_torch only.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+BLACK, WHITE = 512, 16383
+SCALE = WHITE - BLACK
+
+# The JAX gate's knobs (scripts/learning_gate.py SCALES): tiny is its tiny
+# scale and gpu its tpu scale, unchanged. An epoch is the rebalanced SID
+# list (int(100 / n_train) * n_train samples), so diffusion steps ~= epochs
+# * 100 / batch. smoke is gpu with both stages' epochs cut, sized for
+# chip_smoke.py's gate phase on an H100, whose training step is host-bound
+# at ~220 ms: 50 of 800 diffusion epochs (300 of 4,800 steps at batch 16)
+# and 15 of 150 LSID epochs; everything else (frames, dim 48, crop 64, T
+# 1000, DDIM 50, DPM-10 lambda, learning rates, generation batch 32) is
+# gpu's.
+SCALES = {
+    "tiny": dict(fh=96, fw=128, n_train=4, n_test=2, dim=16, crop=16,
+                 epochs=160, batch=8, T=64, ddim=16, dpm=0,
+                 dpm_spacing="time", lr=3e-4,
+                 lsid_width=8, den_epochs=60, den_lr=1e-3,
+                 den_crop=16, gen_batch=16),
+    "gpu": dict(fh=512, fw=768, n_train=8, n_test=3, dim=48, crop=64,
+                epochs=800, batch=16, T=1000, ddim=50, dpm=10,
+                dpm_spacing="lambda", lr=2e-4,
+                lsid_width=16, den_epochs=150, den_lr=5e-4,
+                den_crop=64, gen_batch=32),
+}
+SCALES["smoke"] = dict(SCALES["gpu"], epochs=50, den_epochs=15)
+
+# the JAX slow test's thresholds (tests/test_learning_gate.py:49-59)
+THRESHOLDS = {
+    "kld_trained < kld_untrained / 2":
+        lambda r: r["kld_trained"]["kld_symmetric"] < r["kld_untrained"]["kld_symmetric"] / 2,
+    "generated_noise_std < 0.3": lambda r: r["generated_noise_std"] < 0.3,
+    "psnr_gain > 1.0": lambda r: r["psnr_gain"] > 1.0,
+}
+
+ISO, RATIO = 800, 100.0
+# DN-domain Poisson gain / Gaussian read variance (the JAX gate's): the
+# noisy-input PSNR sits ~24 dB, and the residuals stay inside the KLD
+# histogram's support ([-0.1, 0.1] at ratio 100)
+K_TRUE, VAR_TRUE = 0.65, 60.0
+
+
+def synth_scene(rng, fh, fw):
+    """Smooth random radiance field in DN (above black), [~200, ~12000]."""
+    lo = rng.uniform(0.0, 1.0, size=(fh // 16, fw // 16))
+    up = np.kron(lo, np.ones((16, 16)))
+    # mild per-pixel texture so scenes aren't piecewise constant
+    up = up + rng.uniform(-0.03, 0.03, size=up.shape)
+    return np.clip(200.0 + up * 11800.0, 0.0, WHITE - BLACK - 600.0)
+
+
+def pg_noisy(rng, clean_dn, ratio, k=K_TRUE, var=VAR_TRUE):
+    latent = clean_dn / ratio
+    poisson = k * rng.poisson(latent / k).astype(np.float64)
+    gauss = rng.normal(0.0, np.sqrt(var), size=clean_dn.shape)
+    return poisson + gauss
+
+
+def build_tree(root, cfg, seed=0):
+    """<root>/SID: n_train + n_test pairs of uint16 Bayer .npy frames and
+    the two list files, byte for byte the JAX gate's tree."""
+    sid = os.path.join(root, "SID")
+    os.makedirs(os.path.join(sid, "Sony", "short"), exist_ok=True)
+    os.makedirs(os.path.join(sid, "Sony", "long"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    train_lines, test_lines = [], []
+    n = cfg["n_train"] + cfg["n_test"]
+    for i in range(1, n + 1):
+        clean = synth_scene(rng, cfg["fh"], cfg["fw"])
+        noisy = pg_noisy(rng, clean, RATIO)
+        in_fn, gt_fn = f"{i:05d}_00_0.1s.ARW", f"{i:05d}_00_10s.ARW"
+        np.save(os.path.join(sid, "Sony", "long", gt_fn + ".npy"),
+                np.clip(clean + BLACK, 0, WHITE).astype(np.uint16))
+        np.save(os.path.join(sid, "Sony", "short", in_fn + ".npy"),
+                np.clip(noisy + BLACK, 0, WHITE).astype(np.uint16))
+        line = f"./Sony/short/{in_fn} ./Sony/long/{gt_fn} ISO{ISO} F1.8"
+        (train_lines if i <= cfg["n_train"] else test_lines).append(line)
+    with open(os.path.join(sid, "Sony_train_list.txt"), "w") as f:
+        f.write("\n".join(train_lines) + "\n")
+    with open(os.path.join(sid, "Sony_test_list.txt"), "w") as f:
+        f.write("\n".join(test_lines) + "\n")
+    return sid
+
+
+def common_flags(workdir, sid, device):
+    """The flags every CLI call shares: bf16 on the card (the CLIs'
+    default), fp32 on the CPU."""
+    precision = [] if device == "cuda" else ["--no_mixed_precision"]
+    return [
+        "--sid_folder", sid,
+        "--pretrained_dir", workdir,
+        "--num_workers", "1",
+        "--device", device,
+        *precision,
+    ]
+
+
+def diffusion_flags(cfg):
+    return [
+        "--net_name", "NoiseDiffNet",
+        "--beta_schedule", "sigmoid2",
+        "--positional_encoding",
+        "--with_camera_settings",
+        "--dim", str(cfg["dim"]),
+        "--crop_size", str(cfg["crop"]),
+        "--diffusion_steps", str(cfg["T"]),
+    ]
+
+
+def generation_argv(cfg, workdir, sid, out, resume, device,
+                    sampler=None, steps=None, spacing=None):
+    return [
+        "--name", f"ISO{ISO}_Ratio{int(RATIO)}",
+        "--resume", resume,  # "" = random init (the untrained baseline)
+        "--testset", "NoiseImageGenerationDataset",
+        "--save_npy",
+        *diffusion_flags(cfg),
+        "--batch_size", str(cfg["gen_batch"]),
+        "--sampling_timesteps", str(steps if steps else cfg["ddim"]),
+        *(["--sampler", sampler] if sampler else []),
+        *(["--dpm_spacing", spacing] if spacing else []),
+        "--iso_value", str(ISO),
+        "--ratio_value", str(int(RATIO)),
+        "--save_folder", out,
+        *common_flags(workdir, sid, device),
+    ]
+
+
+def run_generation(cfg, workdir, sid, out_name, resume, device,
+                   sampler=None, steps=None, spacing=None):
+    from noisediff_tpu_torch.cli import test_diffusion as td
+
+    out = os.path.join(workdir, out_name)
+    td.main(generation_argv(cfg, workdir, sid, out, resume, device, sampler, steps, spacing))
+    return os.path.join(out, f"ISO{ISO}_Ratio{int(RATIO)}", "npy", "generated")
+
+
+def kld_argv(workdir, sid, gen_dir):
+    return [
+        "--iso", str(ISO),
+        "--ratio", str(RATIO),
+        "--generated", gen_dir,
+        "--out", os.path.join(workdir, "kld.json"),
+        "--sid_folder", sid,
+        "--pretrained_dir", workdir,
+    ]
+
+
+def run_kld(workdir, sid, gen_dir):
+    from noisediff_tpu_torch.cli import eval_kld
+
+    return eval_kld.main(kld_argv(workdir, sid, gen_dir))
+
+
+def train_diffusion_argv(cfg, workdir, sid, device):
+    return [
+        "--name", "gate_diff",
+        "--trainset", "SonyTrainDataset",
+        *diffusion_flags(cfg),
+        "--batch_size", str(cfg["batch"]),
+        "--lr", str(cfg["lr"]),
+        "--max_iter", str(cfg["epochs"]),
+        "--save_epoch_freq", str(cfg["epochs"]),
+        "--log_freq", "200",
+        "--save_folder", os.path.join(workdir, "logs", "weights"),
+        *common_flags(workdir, sid, device),
+    ]
+
+
+def train_denoising_argv(cfg, workdir, sid, synth_root, device):
+    return [
+        "--name", "gate_denoise",
+        "--net_name", "LSID",
+        "--lsid_width", str(cfg["lsid_width"]),
+        "--trainset", "SyntheticNoisDiffDenoisingDataset",
+        "--loss_l1",
+        "--crop_size", str(cfg["den_crop"]),
+        "--batch_size", str(cfg["batch"]),
+        "--lr", str(cfg["den_lr"]),
+        "--max_iter", str(cfg["den_epochs"]),
+        "--save_epoch_freq", str(cfg["den_epochs"]),
+        "--log_freq", "200",
+        "--vis_freq", "100000",
+        "--synthetic_folder", synth_root,
+        "--save_folder", os.path.join(workdir, "logs", "dweights"),
+        *common_flags(workdir, sid, device),
+    ]
+
+
+def evaluate_argv(cfg, workdir, sid, resume, device):
+    return [
+        "--resume", resume,
+        "--lsid_width", str(cfg["lsid_width"]),
+        "--ratio", str(int(RATIO)),
+        "--test_dataset", "SID",
+        "--save_folder", os.path.join(workdir, "eval_out"),
+        "--sid_folder", sid,
+        "--pretrained_dir", workdir,
+        "--device", device,
+    ]
+
+
+def trained_weights(workdir):
+    """The trained NoiseDiffNet's EMA weights, else its online weights."""
+    snap = os.path.join(workdir, "logs", "weights", "gate_diff", "snapshot")
+    ema = os.path.join(snap, "ema_final.pth")
+    return ema if os.path.exists(ema) else os.path.join(snap, "net_final.pth")
+
+
+def noisy_input_psnr(sid, paths_pretrained):
+    """Mean PSNR of clip(pack(short)*ratio) vs pack(long) on the test list."""
+    from noisediff_tpu_torch.data import manifest
+    from noisediff_tpu_torch.data.raw_host import load_packed_frame
+
+    vals = []
+    for e in manifest.parse_sid_list(os.path.join(sid, "Sony_test_list.txt")):
+        noisy = np.clip(
+            load_packed_frame(os.path.join(sid, e.in_path), rescale=False) * e.ratio,
+            0, SCALE,
+        ) / SCALE
+        clean = load_packed_frame(os.path.join(sid, e.gt_path), rescale=True)
+        mse = float(np.mean((noisy - clean) ** 2))
+        vals.append(10.0 * np.log10(1.0 / mse))
+    return float(np.mean(vals))
+
+
+def link_patches(src_dir, dst_dir):
+    """Hard-link every generated patch into dst_dir; copy only where the
+    link raises (another filesystem)."""
+    os.makedirs(dst_dir, exist_ok=True)
+    for p in sorted(glob.glob(os.path.join(src_dir, "*.npy"))):
+        dst = os.path.join(dst_dir, os.path.basename(p))
+        try:
+            os.link(p, dst)
+        except OSError:
+            shutil.copy2(p, dst)
+
+
+def card_line(device):
+    """nvidia-smi's name and power limit of the card, None on the CPU."""
+    if device != "cuda":
+        return None
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+class _Stages:
+    """Wall seconds of each stage; on the card each ends synchronised."""
+
+    def __init__(self, device):
+        self.device, self.seconds = device, {}
+
+    def run(self, name, fn, *args, **kwargs):
+        import torch
+
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+        self.seconds[name] = time.perf_counter() - t0
+        print(f"[gate] {name}: {self.seconds[name]:.1f} s", flush=True)
+        return out
+
+
+def training_summary(summary):
+    """Steps; steps/s over the epochs' wall time (loader waits, epoch
+    starts and snapshots included) and the loader's share of it; each
+    step's median seconds from its upload to its end (the device's clock
+    on the card); the mean loss of the first and of the last 100 steps."""
+    n, losses = summary["steps"], [float(v) for v in summary["losses"]]
+    wall = float(sum(summary["epoch_seconds"]))
+    return {
+        "steps": n,
+        "steps_per_s": n / wall,
+        "epoch_seconds": wall,
+        "loader_wait_seconds": float(sum(summary["loader_wait_seconds"])),
+        "step_seconds_median": float(np.median(summary["step_seconds"])),
+        "loss_first_100": float(np.mean(losses[:100])),
+        "loss_last_100": float(np.mean(losses[-100:])),
+    }
+
+
+def check(result):
+    """The thresholds the result misses (empty where it passes)."""
+    return [name for name, ok in THRESHOLDS.items() if not ok(result)]
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workdir", required=True)
+    ap.add_argument("--scale", choices=sorted(SCALES), default="tiny")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--keep", action="store_true",
+                    help="keep the workdir (default: wiped first)")
+    ap.add_argument("--out", default="", help="write the result JSON here")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda (default; bf16, raises without a card) or cpu (fp32)")
+    ap.add_argument("--set", action="append", default=[], metavar="K=V",
+                    help="override a scale knob, e.g. --set epochs=40")
+    ap.add_argument("--restamp_dpm", action="store_true",
+                    help="re-run ONLY the DPM leg of an existing gate workdir (trained "
+                         "snapshot + SID tree) at the scale's dpm / dpm_spacing, and patch "
+                         "the dpm_* fields of the --out artifact in place")
+    return ap
+
+
+def scale_config(args):
+    cfg = dict(SCALES[args.scale])
+    for kv in getattr(args, "set"):
+        k, v = kv.split("=", 1)
+        if k not in cfg:
+            raise SystemExit(f"unknown knob {k!r}; knobs: {sorted(cfg)}")
+        cfg[k] = type(cfg[k])(v)
+    return cfg
+
+
+def restamp_dpm(args, cfg):
+    assert cfg["dpm"] > 0, "restamp needs a dpm step count for the scale"
+    sid = os.path.join(args.workdir, "SID")
+    assert os.path.isdir(sid), f"no SID tree under {args.workdir}"
+    assert args.out and os.path.exists(args.out), \
+        "--restamp_dpm patches an existing --out artifact"
+    spacing = cfg["dpm_spacing"]
+    gen_dpm = run_generation(
+        cfg, args.workdir, sid, f"gen_dpm{cfg['dpm']}_{spacing}_restamp",
+        trained_weights(args.workdir), args.device, sampler="dpm", steps=cfg["dpm"],
+        spacing=spacing,
+    )
+    kld_dpm = run_kld(args.workdir, sid, gen_dpm)
+    with open(args.out) as f:
+        result = json.load(f)
+    result["kld_trained_dpm"] = kld_dpm
+    result["dpm_steps"] = cfg["dpm"]
+    result["dpm_spacing"] = spacing
+    result["dpm_vs_ddim_kld_ratio"] = (
+        kld_dpm["kld_symmetric"] / max(result["kld_trained"]["kld_symmetric"], 1e-12))
+    print(json.dumps(result))
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+def main(argv=None):
+    """Run the gate; returns the result (the JSON written to --out).
+    Raises where the DPM leg failed, after writing the result."""
+    args = build_parser().parse_args(argv)
+    cfg = scale_config(args)
+
+    import torch
+
+    from noisediff_tpu_torch.cli.common import resolve_device
+
+    resolve_device(args.device)  # raises for cuda without a card
+    if args.restamp_dpm:
+        return restamp_dpm(args, cfg)
+
+    if os.path.isdir(args.workdir) and not args.keep:
+        shutil.rmtree(args.workdir)
+    os.makedirs(args.workdir, exist_ok=True)
+    wd, dev = args.workdir, args.device
+    stages = _Stages(dev)
+    t_start = time.perf_counter()
+    sid = stages.run("tree", build_tree, wd, cfg, seed=args.seed)
+
+    from noisediff_tpu_torch.cli import test_denoising, train_denoising, train_diffusion
+
+    ## 1. the untrained baseline (random init)
+    gen0 = stages.run("generate_untrained", run_generation, cfg, wd, sid, "gen_untrained",
+                      "", dev)
+    kld0 = stages.run("kld_untrained", run_kld, wd, sid, gen0)
+
+    ## 2. stage 1: NoiseDiffNet
+    diffusion = stages.run("train_diffusion", train_diffusion.main,
+                           train_diffusion_argv(cfg, wd, sid, dev))
+    resume = trained_weights(wd)
+
+    ## 3. DDIM generation from the trained (EMA) weights and its KLD
+    gen1 = stages.run("generate_ddim", run_generation, cfg, wd, sid, "gen_trained", resume, dev)
+    kld1 = stages.run("kld_ddim", run_kld, wd, sid, gen1)
+    # an undertrained model generates near the N(0,1) prior; the real
+    # residual's std is ~0.05-0.07
+    gen_std = float(np.std(np.stack([
+        np.load(p) for p in sorted(glob.glob(os.path.join(gen1, "*.npy")))[:64]
+    ])))
+
+    ## 4. DPM-Solver++(2M) from the same weights; a failure is recorded,
+    ## stage 2 still runs, and the gate raises at its end
+    kld_dpm, dpm_error = None, None
+    if cfg["dpm"] > 0:
+        try:
+            gen_dpm = stages.run("generate_dpm", run_generation, cfg, wd, sid,
+                                 "gen_trained_dpm", resume, dev, sampler="dpm",
+                                 steps=cfg["dpm"], spacing=cfg["dpm_spacing"])
+            kld_dpm = stages.run("kld_dpm", run_kld, wd, sid, gen_dpm)
+        except Exception as exc:
+            dpm_error = f"{type(exc).__name__}: {exc}"[:300]
+
+    ## 5. stage 2: LSID on the DDIM patches
+    synth_root = os.path.join(wd, "synth")
+    link_patches(gen1, os.path.join(synth_root, f"ISO{ISO}_Ratio{int(RATIO)}"))
+    denoising = stages.run("train_denoising", train_denoising.main,
+                           train_denoising_argv(cfg, wd, sid, synth_root, dev))
+
+    ## 6. the held-out frames' PSNR against the noisy input's
+    dsnap = os.path.join(wd, "logs", "dweights", "gate_denoise", "snapshot")
+    den_args = test_denoising.build_parser().parse_args(
+        evaluate_argv(cfg, wd, sid, os.path.join(dsnap, "net_final.pth"), dev))
+    den_args.rank = -1
+    res = stages.run("evaluate", test_denoising.evaluate, den_args)
+    psnr_in = noisy_input_psnr(sid, wd)
+
+    result = {
+        "scale": args.scale,
+        "noise_model": {"K": K_TRUE, "VAR": VAR_TRUE, "iso": ISO, "ratio": RATIO},
+        "kld_untrained": kld0,
+        "kld_trained": kld1,
+        "generated_noise_std": gen_std,
+        "kld_improvement": kld0["kld_symmetric"] / max(kld1["kld_symmetric"], 1e-12),
+        "psnr_noisy_input": psnr_in,
+        "psnr_denoised": res["PSNR"],
+        "psnr_gain": res["PSNR"] - psnr_in,
+        "ssim_denoised": res["SSIM"],
+        "n_eval_frames": res["n"],
+    }
+    if dpm_error is not None:
+        result["dpm_error"] = dpm_error
+    if kld_dpm is not None:
+        result["kld_trained_dpm"] = kld_dpm
+        result["dpm_steps"] = cfg["dpm"]
+        result["dpm_spacing"] = cfg["dpm_spacing"]
+        result["dpm_vs_ddim_kld_ratio"] = (
+            kld_dpm["kld_symmetric"] / max(kld1["kld_symmetric"], 1e-12))
+    missed = check(result)
+    result.update(
+        config=cfg, seed=args.seed,
+        device=torch.cuda.get_device_name(0) if dev == "cuda" else "cpu",
+        card=card_line(dev), mixed_precision=dev == "cuda",
+        wgrad_route=os.environ.get("NOISEDIFF_WGRAD", "xla"),
+        seconds=dict(stages.seconds, total=time.perf_counter() - t_start),
+        train_diffusion=training_summary(diffusion),
+        train_denoising=training_summary(denoising),
+        thresholds=sorted(THRESHOLDS), missed=missed, passed=not missed and dpm_error is None,
+    )
+    print(json.dumps(result))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    if dpm_error is not None:
+        raise RuntimeError(f"the DPM leg failed: {dpm_error}")
+    return result
+
+
+if __name__ == "__main__":
+    out = main()
+    sys.exit(0 if out.get("passed", True) else 1)

@@ -22,7 +22,9 @@ one-process step (1e-5; gradients by relative L2 over all of them, and
 back). The steps update by SGD, whose update is the gradient itself, so
 the gathered parameters after it are held at the same bound; Adam's first
 update would turn the rounding noise of near-zero gradients into steps of
-+-lr (chip_smoke's train_sharded phase holds Adam)."""
++-lr (chip_smoke's train_sharded phase holds Adam). In bf16 the {model 2}
+step is held against the JAX package's own {model 2} distance from its
+single-device step (`test_model_axis_bf16_distance_is_the_references`)."""
 import json
 
 import jax
@@ -37,6 +39,7 @@ from noisediff_tpu.diffusion.gaussian import GaussianDiffusion as JaxDiffusion
 from noisediff_tpu.models import NoiseDiffNet as JaxNet
 from noisediff_tpu.parallel import make_mesh as jax_make_mesh
 from noisediff_tpu.parallel import param_sharding_rules as jax_rules
+from noisediff_tpu.parallel import replicated as jax_replicated
 from noisediff_tpu.train.state import create_train_state
 from noisediff_tpu.train.state import make_diffusion_train_step as jax_train_step
 from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
@@ -51,6 +54,10 @@ S, GB, DIM, T = 16, 4, 16, 1000
 LR = 1e-2
 ONE_PROCESS_TOL = 1e-5
 TENSOR_TOL = 5e-5
+# the port's {model 2} bf16 gradients may be this many times farther from its
+# one-process bf16 gradients than the JAX package's {model 2} bf16 gradients
+# are from its single-device bf16 gradients
+MODEL_AXIS_BF16_RATIO = 1.5
 GRIDS = {"spatial2": {"spatial": 2}, "model2": {"model": 2},
          "data2_spatial2_model2": {"data": 2, "spatial": 2, "model": 2}}
 
@@ -72,7 +79,7 @@ cfg = json.loads(os.environ["ND_TEST_CFG"])
 mesh.setup(CPU)
 grid = mesh.make_mesh(cfg["axes"])
 d = np.load(cfg["inputs"])
-model = NoiseDiffNet(dim=cfg["dim"])
+model = NoiseDiffNet(dim=cfg["dim"], dtype=torch.bfloat16 if cfg.get("bf16") else None)
 model.load_state_dict(torch.load(cfg["state"], weights_only=True), strict=True)
 model = model.to(memory_format=torch.channels_last).train()
 whole = sum(p.numel() for p in model.parameters())
@@ -361,3 +368,73 @@ def test_grid_step_matches_jax(grids, jax_step, name):
             assert n not in saved["grads"] and not w.any(), n
             continue
         assert _rel(saved["grads"][n], w) <= RTOL, n
+
+
+def _jax_bf16_grads(model_axis: bool):
+    """The JAX step of `jax_step` with a bf16 NoiseDiffNet (fp32
+    parameters) on one device, or with its parameters split by
+    param_sharding_rules over a {model 2} mesh of two virtual devices (XLA
+    partitions the step): every gradient but the unread ones, torch
+    layout."""
+    batch = _batch()
+    jnet = JaxNet(dim=DIM, dtype=jnp.bfloat16)
+    cond = {"clean_img": jnp.asarray(batch["clean_img"]), "position": jnp.asarray(batch["coord"]),
+            "iso_ratio_idx": jnp.asarray(batch["iso_ratio_idx"], jnp.int32)}
+    params = random_params(JaxNet(dim=DIM), jnp.asarray(batch["noise"]),
+                           jnp.zeros((GB,), jnp.int32), cond, seed=3)
+    jd = JaxDiffusion.create(lambda p, x, t, c: jnet.apply({"params": p}, x, t, c),
+                             image_size=S, timesteps=T, beta_schedule="sigmoid2")
+    opt = _capture_grads()
+    jbatch = {k: jnp.asarray(v, jnp.int32 if k == "iso_ratio_idx" else None)
+              for k, v in batch.items()}
+    if model_axis:
+        grid = jax_make_mesh({"model": 2}, devices=jax.devices()[:2])
+        params = jax.tree.map(jax.device_put, params, jax_rules(grid, params))
+        jbatch = jax.device_put(jbatch, jax_replicated(grid))
+    state, _ = jax_train_step(jd, opt, donate=False)(
+        create_train_state(params, opt, with_ema=False), jbatch, jax.random.PRNGKey(5))
+    grads = jax_params_to_state_dict(jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                                  state.opt_state))
+    return {n: torch.from_numpy(np.asarray(g)) for n, g in grads.items()
+            if not is_unread_parameter(n)}
+
+
+@pytest.fixture(scope="module")
+def bf16_model_axis(jax_step):
+    """{package: ({model 2} bf16 gradients, one device's bf16 gradients)}
+    on jax_step's weights and draws."""
+    d, _ = jax_step
+    model = NoiseDiffNet(dim=DIM, dtype=torch.bfloat16)
+    model.load_state_dict(torch.load(d / "net.pth", weights_only=True), strict=True)
+    model = model.to(memory_format=torch.channels_last).train()
+    gd = GaussianDiffusion(model, make_schedule("sigmoid2", T), image_size=S, device="cpu")
+    inputs = np.load(d / "inputs.npz")
+    batch = {k: torch.from_numpy(inputs[k]) for k in ("noise", "clean_img", "coord",
+                                                      "iso_ratio_idx")}
+    make_diffusion_train_step(gd, torch.optim.SGD(model.parameters(), lr=LR))(
+        batch, None, draws=(torch.from_numpy(inputs["t"]), torch.from_numpy(inputs["draw"])))
+    one = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    cfg = {"axes": {"model": 2}, "inputs": str(d / "inputs.npz"), "state": str(d / "net.pth"),
+           "out": str(d / "model2_bf16.pt"), "dim": DIM, "S": S, "T": T, "lr": LR, "bf16": True}
+    run_ranks(RANK_CODE, 2, env={"ND_TEST_CFG": json.dumps(cfg)})
+    split = torch.load(d / "model2_bf16.pt", weights_only=True)["grads"]
+    return {"jax": (_jax_bf16_grads(True), _jax_bf16_grads(False)), "port": (split, one)}
+
+
+def test_model_axis_bf16_distance_is_the_references(bf16_model_axis):
+    """The model axis's bf16 gradients against one process's bf16 ones, the
+    port beside the JAX package on the same weights and draws (NoiseDiffNet
+    dim 16, 16 x 16, global batch 4; the 128-wide layers split): the JAX
+    package read 0.01072 rel L2 over all gradients, the port 0.006275
+    (0.59x). The port is held within MODEL_AXIS_BF16_RATIO (1.5) times the
+    JAX distance: a layer that rounds its split output or its input
+    gradient's sum once more than the reference's partitioned step would
+    exceed it. Both distances are those of bf16 sums in another order,
+    above zero: the axis splits the layers."""
+    jax_split, jax_one = bf16_model_axis["jax"]
+    port_split, port_one = bf16_model_axis["port"]
+    assert port_split.keys() == port_one.keys() == jax_one.keys()
+    jax_rel = _all_rel(jax_split, jax_one)
+    port_rel = _all_rel(port_split, port_one)
+    assert 0.0 < jax_rel < 0.05 and 0.0 < port_rel, (jax_rel, port_rel)
+    assert port_rel <= MODEL_AXIS_BF16_RATIO * jax_rel, (port_rel, jax_rel)
