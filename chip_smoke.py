@@ -187,6 +187,13 @@ The closed-loop learning gate (scripts/port_learning_gate.py):
            slow test's three thresholds (KLD halved, generated std below
            0.3, PSNR gain above 1 dB) and each of the seven kernels
            launched (launches_gate in the kernels line)
+  sweep    (after gate, on its smoke workdir) the sampler KLD sweep
+           (scripts/port_dpm_step_sweep.py) of the gate's EMA weights:
+           DPM-5 and DPM-20 on the lambda grid and its two DDIM-50 legs,
+           the fused tail and unfused from the same draws, counted from
+           zero: attn_tail, groupnorm_silu, dual_head and ddim_head each
+           launched (launches_sweep in the kernels line), the two DDIM-50
+           KLDs within SWEEP_DDIM_RTOL
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -3677,9 +3684,6 @@ def phase_dist_cli(workdir: str, what: str, argv, snapshots, load):
                 raise AssertionError(f"dist_cli {what}: rank {r} saved {res[r]['snapshots']}")
         load(os.path.join(run0, "snapshot"))
         out[f"world{world}"] = res
-    if what == "train":  # second readings, in the order none, world 1, world 1, none
-        (out["world1 again"],), _ = run("world1_again", 1, "pytorch", True)
-        out["none again"] = run("none_again", 1, "none", False)[0][0]
     per = BATCH if what == "train" else DENOISE_BATCH
     for tag, res in out.items():
         res = res if isinstance(res, list) else [res]
@@ -4218,6 +4222,51 @@ def phase_gate(seed: int, workdir: str):
     return dict(rows=rows, counts=counts, result=result, seconds=seconds)
 
 
+# the inference kernels the sweep phase must launch, and how far apart its
+# fused and unfused DDIM-50 KLDs may be: both are bf16 on the card from the
+# same draws, the fused tail carrying its update in fp32
+SWEEP_KERNELS = ("attn_tail", "groupnorm_silu", "dual_head", "ddim_head")
+SWEEP_DDIM_RTOL = 0.02
+
+
+def phase_sweep(workdir: str):
+    """The sampler KLD sweep on the gate phase's smoke workdir, counted
+    from zero: the EMA weights at DPM-5 and DPM-20 (lambda grid) and DDIM-50
+    fused and unfused. Asserts each of SWEEP_KERNELS launched and the two
+    DDIM-50 KLDs within SWEEP_DDIM_RTOL of each other."""
+    import importlib.util
+
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    spec = importlib.util.spec_from_file_location(
+        "port_dpm_step_sweep", os.path.join(PORT_DIR, "scripts", "port_dpm_step_sweep.py"))
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    reset_launch_counts()
+    t0 = time.time()
+    result = sweep.main(["--workdir", os.path.join(workdir, "gate"), "--scale", "smoke",
+                         "--steps", "5,20", "--spacing", "lambda"])
+    seconds = time.time() - t0
+    counts = launch_counts()
+    rows = {(r["sampler"], r["steps"]): r for r in result["sweep"]}
+    for r in result["sweep"]:
+        log(f"  {r['sampler']}-{r['steps']}{' ' + r['spacing'] if r['spacing'] else ''}: KLD "
+            f"{r['kld_symmetric']:.6f} ({r['vs_ddim_ratio']:.4f} of DDIM), std "
+            f"{r['generated_noise_std']:.6f}, {r['seconds']:.1f} s")
+    fused = rows[("ddim", 50)]["kld_symmetric"]
+    unfused = rows[("ddim_unfused", 50)]["kld_symmetric"]
+    rel = abs(unfused - fused) / fused
+    log(f"  {seconds:.1f} s; DDIM-50 fused {fused:.6f} against unfused {unfused:.6f}: "
+        f"{rel:.4%} apart (tolerance {SWEEP_DDIM_RTOL:.0%}); launches: {counts}")
+    if rel > SWEEP_DDIM_RTOL:
+        raise AssertionError(f"sweep: fused DDIM-50 KLD {fused} and unfused {unfused} are "
+                             f"{rel:.4%} apart (tolerance {SWEEP_DDIM_RTOL:.0%})")
+    missing = [name for name in SWEEP_KERNELS if counts[KERNEL_META[name][0]] == 0]
+    if missing:
+        raise AssertionError(f"sweep: {missing} launched no time in the sweep: {counts}")
+    return dict(counts=counts, result=result, seconds=seconds)
+
+
 KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
                    "fused_dual_head", "fused_ddim_head_update", "gn_stats", "gn_grad_stats",
                    "conv_wgrad", "flash_attention", "groupnorm_silu_apply")
@@ -4433,6 +4482,9 @@ def main(argv=None) -> int:
         log("[gate] the closed-loop learning gate through the CLIs, smoke scale, bf16")
         gate = phase_gate(args.seed, workdir)
         log(f"  gate phase {gate['seconds']:.1f} s of gate run")
+        log("[sweep] the sampler KLD sweep on the gate's EMA weights: DPM-5, DPM-20 lambda, "
+            "DDIM-50 fused and unfused")
+        sweep = phase_sweep(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for name, rows in gate["rows"].items():
@@ -4460,7 +4512,9 @@ def main(argv=None) -> int:
     for name in ("attn_tail", "groupnorm_silu", "dual_head", "attn_tail_bwd", "gn_stats",
                  "gn_grad_stats"):
         w = KERNEL_META[name][0]
-        launches[name] = (gc[w] + dc[w] + tc[w] + fc[w] + pc[w] + sc[w] + gate["counts"][w], {
+        sw = sweep["counts"][w] if name in SWEEP_KERNELS else 0
+        total = gc[w] + dc[w] + tc[w] + fc[w] + pc[w] + sc[w] + gate["counts"][w] + sw
+        launches[name] = (total, {
             "launches_fullframe_sharded": sc[w],
             # the UNet_PosEmbV2 family's CLI runs (posemb phase)
             "launches_posemb": pc[w],
@@ -4477,12 +4531,15 @@ def main(argv=None) -> int:
             "launches_dist_train_world1": dist_train["world1"][0]["launches"][w],
             "launches_remat_step": remat["launches"][w],
             # the learning gate's smoke run (gate phase)
-            "launches_gate": gate["counts"][w]})
+            "launches_gate": gate["counts"][w],
+            # the sampler sweep on its weights (sweep phase)
+            "launches_sweep": sw})
     n, n_sh = ddim["counts"]["fused_ddim_head_update"], sdc["fused_ddim_head_update"]
     n_gate = gate["counts"]["fused_ddim_head_update"]
-    launches["ddim_head"] = (n + n_sh + n_gate, {"launches_per_batch": n / N_BATCHES,
-                                        "launches_fullframe_sharded_ddim": n_sh,
-                                        "launches_gate": n_gate})
+    n_sweep = sweep["counts"]["fused_ddim_head_update"]
+    launches["ddim_head"] = (n + n_sh + n_gate + n_sweep, {
+        "launches_per_batch": n / N_BATCHES, "launches_fullframe_sharded_ddim": n_sh,
+        "launches_gate": n_gate, "launches_sweep": n_sweep})
     n = sc["groupnorm_silu_apply"]
     launches["groupnorm_silu_apply"] = (n, {
         "launches_per_rank_per_eval": n / (2 * FULLFRAME_STEPS),

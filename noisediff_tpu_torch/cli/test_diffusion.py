@@ -86,8 +86,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None):
-    """Run generation; returns the trainer's summary of the run."""
+def main(argv=None, fused_tail: bool = True):
+    """Run generation; returns the trainer's summary of the run.
+    `fused_tail=False` (Python callers only) samples DDIM unfused."""
     args = build_parser().parse_args(argv)
     set_random_seed(args.random_seed)
     init_distributed(args)
@@ -98,7 +99,9 @@ def main(argv=None):
 
         from ..train.trainer_diffusion import Trainer
 
-        return Trainer(args).test()
+        trainer = Trainer(args)
+        trainer.fused_tail = fused_tail
+        return trainer.test()
     finally:
         mesh.teardown()
 

@@ -179,6 +179,10 @@ class _DeviceClock:
 
 
 class Trainer:
+    # DDIM takes the fused tail where the model has one (`sampler`); a
+    # caller sets False to sample it unfused from the same draws
+    fused_tail = True
+
     def __init__(self, args):
         if args.phase not in ("train", "test"):
             raise ValueError(f"--phase must be train or test, got {args.phase!r}")
@@ -417,14 +421,17 @@ class Trainer:
         plain version on the CPU) whenever the model has a trunk and the
         objective is pred_v. The JAX package gates it behind
         NOISEDIFF_FUSED_TAIL; the port turns on by default every inference
-        kernel that computes the same function as the unfused path."""
+        kernel that computes the same function as the unfused path.
+        `fused_tail = False` on the trainer samples DDIM unfused (trunk_fn
+        None) from the same draws, for a caller that holds one against the
+        other."""
         gd = self.diffusion
         shape = (batch_size, self.args.crop_size, self.args.crop_size, 4)
         kind = getattr(self.args, "sampler", "auto")
         spacing = getattr(self.args, "dpm_spacing", "lambda")
         if kind == "dpm":  # resolved (and reported) once per run, not per batch
             dpm_steps = gd.sampling_timesteps or default_dpm_steps(spacing, warn=True)
-        trunk_fn = gd.fused_tail_trunk()
+        trunk_fn = gd.fused_tail_trunk() if self.fused_tail else None
 
         def fn(condition, generator):
             if kind == "dpm":

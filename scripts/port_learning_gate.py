@@ -20,7 +20,9 @@ name and power limit), `wgrad_route` (NOISEDIFF_WGRAD), `seconds` by stage,
 the card (`--device cuda`, the default; raises without one) in bf16, the
 CLIs' default and the route on which the kernels run, or on the CPU
 (`--device cpu`) in fp32 (`--no_mixed_precision`), as the JAX gate does off
-the TPU. Run as
+the TPU; `--no_mixed_precision` runs fp32 on the card too. `--seed` picks
+the tree, `--random_seed` the CLIs' seed (initial weights and every draw):
+one run's EMA model scores with a wide spread over the draws. Run as
 
     python scripts/port_learning_gate.py --scale gpu --workdir /tmp/gate --out gate.json
     python scripts/port_learning_gate.py --device cpu --scale tiny --workdir /tmp/gate
@@ -127,9 +129,9 @@ def build_tree(root, cfg, seed=0):
     return sid
 
 
-def common_flags(workdir, sid, device):
+def common_flags(workdir, sid, device, run=()):
     """The flags every CLI call shares: bf16 on the card (the CLIs'
-    default), fp32 on the CPU."""
+    default), fp32 on the CPU; then `run`, the run's own (`run_flags`)."""
     precision = [] if device == "cuda" else ["--no_mixed_precision"]
     return [
         "--sid_folder", sid,
@@ -137,7 +139,15 @@ def common_flags(workdir, sid, device):
         "--num_workers", "1",
         "--device", device,
         *precision,
+        *run,
     ]
+
+
+def run_flags(args):
+    """The CLI flags of --random_seed and --no_mixed_precision (none at
+    their defaults)."""
+    return ((["--random_seed", str(args.random_seed)] if args.random_seed else [])
+            + (["--no_mixed_precision"] if args.no_mixed_precision else []))
 
 
 def diffusion_flags(cfg):
@@ -153,7 +163,7 @@ def diffusion_flags(cfg):
 
 
 def generation_argv(cfg, workdir, sid, out, resume, device,
-                    sampler=None, steps=None, spacing=None):
+                    sampler=None, steps=None, spacing=None, run=()):
     return [
         "--name", f"ISO{ISO}_Ratio{int(RATIO)}",
         "--resume", resume,  # "" = random init (the untrained baseline)
@@ -167,16 +177,17 @@ def generation_argv(cfg, workdir, sid, out, resume, device,
         "--iso_value", str(ISO),
         "--ratio_value", str(int(RATIO)),
         "--save_folder", out,
-        *common_flags(workdir, sid, device),
+        *common_flags(workdir, sid, device, run),
     ]
 
 
 def run_generation(cfg, workdir, sid, out_name, resume, device,
-                   sampler=None, steps=None, spacing=None):
+                   sampler=None, steps=None, spacing=None, fused_tail=True, run=()):
     from noisediff_tpu_torch.cli import test_diffusion as td
 
     out = os.path.join(workdir, out_name)
-    td.main(generation_argv(cfg, workdir, sid, out, resume, device, sampler, steps, spacing))
+    td.main(generation_argv(cfg, workdir, sid, out, resume, device, sampler, steps, spacing,
+                            run), fused_tail=fused_tail)
     return os.path.join(out, f"ISO{ISO}_Ratio{int(RATIO)}", "npy", "generated")
 
 
@@ -197,7 +208,7 @@ def run_kld(workdir, sid, gen_dir):
     return eval_kld.main(kld_argv(workdir, sid, gen_dir))
 
 
-def train_diffusion_argv(cfg, workdir, sid, device):
+def train_diffusion_argv(cfg, workdir, sid, device, run=()):
     return [
         "--name", "gate_diff",
         "--trainset", "SonyTrainDataset",
@@ -208,11 +219,11 @@ def train_diffusion_argv(cfg, workdir, sid, device):
         "--save_epoch_freq", str(cfg["epochs"]),
         "--log_freq", "200",
         "--save_folder", os.path.join(workdir, "logs", "weights"),
-        *common_flags(workdir, sid, device),
+        *common_flags(workdir, sid, device, run),
     ]
 
 
-def train_denoising_argv(cfg, workdir, sid, synth_root, device):
+def train_denoising_argv(cfg, workdir, sid, synth_root, device, run=()):
     return [
         "--name", "gate_denoise",
         "--net_name", "LSID",
@@ -228,7 +239,7 @@ def train_denoising_argv(cfg, workdir, sid, synth_root, device):
         "--vis_freq", "100000",
         "--synthetic_folder", synth_root,
         "--save_folder", os.path.join(workdir, "logs", "dweights"),
-        *common_flags(workdir, sid, device),
+        *common_flags(workdir, sid, device, run),
     ]
 
 
@@ -243,6 +254,12 @@ def evaluate_argv(cfg, workdir, sid, resume, device):
         "--pretrained_dir", workdir,
         "--device", device,
     ]
+
+
+def generated_std(gen_dir):
+    """The std of the first 64 generated patches."""
+    files = sorted(glob.glob(os.path.join(gen_dir, "*.npy")))[:64]
+    return float(np.std(np.stack([np.load(p) for p in files])))
 
 
 def trained_weights(workdir):
@@ -335,7 +352,11 @@ def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workdir", required=True)
     ap.add_argument("--scale", choices=sorted(SCALES), default="tiny")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0, help="the synthetic tree's seed")
+    ap.add_argument("--random_seed", type=int, default=0,
+                    help="the CLIs' --random_seed: initial weights and every draw")
+    ap.add_argument("--no_mixed_precision", action="store_true",
+                    help="fp32 on the card too (the plain route, no kernel)")
     ap.add_argument("--keep", action="store_true",
                     help="keep the workdir (default: wiped first)")
     ap.add_argument("--out", default="", help="write the result JSON here")
@@ -370,7 +391,7 @@ def restamp_dpm(args, cfg):
     gen_dpm = run_generation(
         cfg, args.workdir, sid, f"gen_dpm{cfg['dpm']}_{spacing}_restamp",
         trained_weights(args.workdir), args.device, sampler="dpm", steps=cfg["dpm"],
-        spacing=spacing,
+        spacing=spacing, run=run_flags(args),
     )
     kld_dpm = run_kld(args.workdir, sid, gen_dpm)
     with open(args.out) as f:
@@ -403,7 +424,7 @@ def main(argv=None):
     if os.path.isdir(args.workdir) and not args.keep:
         shutil.rmtree(args.workdir)
     os.makedirs(args.workdir, exist_ok=True)
-    wd, dev = args.workdir, args.device
+    wd, dev, run = args.workdir, args.device, run_flags(args)
     stages = _Stages(dev)
     t_start = time.perf_counter()
     sid = stages.run("tree", build_tree, wd, cfg, seed=args.seed)
@@ -412,22 +433,21 @@ def main(argv=None):
 
     ## 1. the untrained baseline (random init)
     gen0 = stages.run("generate_untrained", run_generation, cfg, wd, sid, "gen_untrained",
-                      "", dev)
+                      "", dev, run=run)
     kld0 = stages.run("kld_untrained", run_kld, wd, sid, gen0)
 
     ## 2. stage 1: NoiseDiffNet
     diffusion = stages.run("train_diffusion", train_diffusion.main,
-                           train_diffusion_argv(cfg, wd, sid, dev))
+                           train_diffusion_argv(cfg, wd, sid, dev, run))
     resume = trained_weights(wd)
 
     ## 3. DDIM generation from the trained (EMA) weights and its KLD
-    gen1 = stages.run("generate_ddim", run_generation, cfg, wd, sid, "gen_trained", resume, dev)
+    gen1 = stages.run("generate_ddim", run_generation, cfg, wd, sid, "gen_trained", resume, dev,
+                      run=run)
     kld1 = stages.run("kld_ddim", run_kld, wd, sid, gen1)
     # an undertrained model generates near the N(0,1) prior; the real
     # residual's std is ~0.05-0.07
-    gen_std = float(np.std(np.stack([
-        np.load(p) for p in sorted(glob.glob(os.path.join(gen1, "*.npy")))[:64]
-    ])))
+    gen_std = generated_std(gen1)
 
     ## 4. DPM-Solver++(2M) from the same weights; a failure is recorded,
     ## stage 2 still runs, and the gate raises at its end
@@ -436,7 +456,7 @@ def main(argv=None):
         try:
             gen_dpm = stages.run("generate_dpm", run_generation, cfg, wd, sid,
                                  "gen_trained_dpm", resume, dev, sampler="dpm",
-                                 steps=cfg["dpm"], spacing=cfg["dpm_spacing"])
+                                 steps=cfg["dpm"], spacing=cfg["dpm_spacing"], run=run)
             kld_dpm = stages.run("kld_dpm", run_kld, wd, sid, gen_dpm)
         except Exception as exc:
             dpm_error = f"{type(exc).__name__}: {exc}"[:300]
@@ -445,7 +465,7 @@ def main(argv=None):
     synth_root = os.path.join(wd, "synth")
     link_patches(gen1, os.path.join(synth_root, f"ISO{ISO}_Ratio{int(RATIO)}"))
     denoising = stages.run("train_denoising", train_denoising.main,
-                           train_denoising_argv(cfg, wd, sid, synth_root, dev))
+                           train_denoising_argv(cfg, wd, sid, synth_root, dev, run))
 
     ## 6. the held-out frames' PSNR against the noisy input's
     dsnap = os.path.join(wd, "logs", "dweights", "gate_denoise", "snapshot")
@@ -478,9 +498,9 @@ def main(argv=None):
             kld_dpm["kld_symmetric"] / max(kld1["kld_symmetric"], 1e-12))
     missed = check(result)
     result.update(
-        config=cfg, seed=args.seed,
+        config=cfg, seed=args.seed, random_seed=args.random_seed,
         device=torch.cuda.get_device_name(0) if dev == "cuda" else "cpu",
-        card=card_line(dev), mixed_precision=dev == "cuda",
+        card=card_line(dev), mixed_precision=dev == "cuda" and not args.no_mixed_precision,
         wgrad_route=os.environ.get("NOISEDIFF_WGRAD", "xla"),
         seconds=dict(stages.seconds, total=time.perf_counter() - t_start),
         train_diffusion=training_summary(diffusion),

@@ -234,9 +234,9 @@ def test_micro_run_returns_every_key(tmp_path):
     jax_keys = {"scale", "noise_model", "kld_untrained", "kld_trained", "generated_noise_std",
                 "kld_improvement", "psnr_noisy_input", "psnr_denoised", "psnr_gain",
                 "ssim_denoised", "n_eval_frames"}
-    port_keys = {"config", "seed", "device", "card", "mixed_precision", "wgrad_route",
-                 "seconds", "train_diffusion", "train_denoising", "thresholds", "missed",
-                 "passed"}
+    port_keys = {"config", "seed", "random_seed", "device", "card", "mixed_precision",
+                 "wgrad_route", "seconds", "train_diffusion", "train_denoising", "thresholds",
+                 "missed", "passed"}
     assert set(result) == jax_keys | port_keys
     assert _finite(result)
     assert result["device"] == "cpu" and result["card"] is None
@@ -309,7 +309,7 @@ def test_dpm_failure_is_recorded_and_raises(monkeypatch, tmp_path):
     from noisediff_tpu_torch.cli import test_denoising, train_denoising, train_diffusion
 
     def generation(cfg, workdir, sid, out_name, resume, device, sampler=None, steps=None,
-                   spacing=None):
+                   spacing=None, run=()):
         if sampler == "dpm":
             raise ValueError("no DPM today")
         out = os.path.join(workdir, out_name, "generated")
@@ -341,8 +341,12 @@ def test_h100_record_is_what_the_script_writes():
     """LEARNING_GATE_H100.json: each run is the gpu-scale --out JSON with the
     DPM leg, plus only its `run` label (the keys the micro run holds, the
     DPM leg's, and the present training summary's except where the record
-    names the run as written by the earlier form); two runs on the default
-    route and one on conv_wgrad, each passing the three thresholds."""
+    names the run as written by the earlier form; `random_seed` from the
+    runs the script wrote with it); two runs on the default route and one
+    on conv_wgrad on tree 0, then one default-route run on each of trees
+    0, 1 and 2, then tree 0 at --random_seed 1 and in fp32, each passing
+    the three thresholds; the second tree-0 default-route run repeats the
+    first's readings bit for bit."""
     with open(os.path.join(REPO, "LEARNING_GATE_H100.json")) as f:
         record = json.load(f)
     keys = {"run", "scale", "noise_model", "kld_untrained", "kld_trained",
@@ -357,11 +361,18 @@ def test_h100_record_is_what_the_script_writes():
     earlier = {"steps", "steps_per_s", "epoch_seconds", "loader_wait_seconds", "loss_first",
                "loss_last"}
     runs = record["runs"]
-    assert [r["wgrad_route"] for r in runs] == ["xla", "xla", "pallas"]
+    assert [r["run"] for r in runs[:3]] == ["gpu_default_1", "gpu_default_2", "gpu_pallas_1"]
+    assert [r["wgrad_route"] for r in runs] == ["xla"] * 2 + ["pallas"] + ["xla"] * 5
+    assert [(r["seed"], r.get("random_seed", 0)) for r in runs] == [(0, 0)] * 4 + [
+        (1, 0), (2, 0), (0, 1), (0, 0)]
+    assert [r["mixed_precision"] for r in runs] == [True] * 7 + [False]
+    readings = ("kld_untrained", "kld_trained", "kld_trained_dpm", "generated_noise_std",
+                "psnr_denoised")
+    assert {k: runs[3][k] for k in readings} == {k: runs[0][k] for k in readings}
     for r in runs:
-        assert set(r) == keys, r["run"]
+        assert set(r) - {"random_seed"} == keys, r["run"]
         assert r["scale"] == "gpu" and r["config"] == plg.SCALES["gpu"]
-        assert r["mixed_precision"] is True and r["card"].startswith(r["device"])
+        assert r["card"].startswith(r["device"])
         want = earlier if r["run"] in record["earlier_training_summary"] else summary
         assert set(r["train_diffusion"]) == set(r["train_denoising"]) == want, r["run"]
         assert plg.check(r) == r["missed"] == [] and r["passed"], r["run"]
