@@ -71,6 +71,12 @@ SCALES = {
                 den_crop=64, gen_batch=32),
 }
 SCALES["smoke"] = dict(SCALES["gpu"], epochs=50, den_epochs=15)
+# horizon is gpu at dim 16 and crop 32, everything else (frames, 4,800
+# steps of batch 16, T 1000, the EMA's copies up to call 500 and 214 lerps,
+# the samplers) gpu's: the gate's full horizon at a width and crop that
+# both packages train on an 8-core CPU in 25-35 minutes. LSID crops the
+# generated patches, so its crop follows theirs.
+SCALES["horizon"] = dict(SCALES["gpu"], dim=16, crop=32, den_crop=32)
 
 # the JAX slow test's thresholds (tests/test_learning_gate.py:49-59)
 THRESHOLDS = {
