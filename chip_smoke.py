@@ -28,6 +28,18 @@ Every phase runs, in this order (any failure exits non-zero):
            through the kernels, against the same weights on the CPU
   profile  one model evaluation at the canonical shape: CUDA-event time and
            torch.profiler device time by kernel, with the idle share
+  int8     the int8 route's kernels (NOISEDIFF_INT8=1,
+           csrc/int8_conv.cu: int8_conv and absmax) at every call shape of
+           one dim-48 evaluation (B 4, 512^2, bf16: 77 convs) and of LSID's
+           evaluation of one packed full frame (fp32: 21), both dtypes at
+           each, and at INT8_RAGGED: bit-equal to the plain version, absmax
+           equal to max |x|; each shape timed in its path's dtype beside its
+           bound, cuDNN's bf16 conv and (1x1) torch._int_mm. After fp32
+           generation the main phase's DPM-10 run again under the variable
+           (77 + 77 launches an evaluation, patches/s, the patches' distance
+           from the bf16 run's); after evaluate its first frame under the
+           variable (21 + 21 launches, PSNR / SSIM beside the fp32 route's).
+           Their launches go into the kernels line
   main     bulk generation through the port's CLI at the canonical config
            (NoiseDiffNet dim 48, crop 512, batch 4, sigmoid2, DPM-Solver++
            10-step lambda grid) from seeded random weights saved as a
@@ -189,11 +201,12 @@ The closed-loop learning gate (scripts/port_learning_gate.py):
            launched (launches_gate in the kernels line)
   sweep    (after gate, on its smoke workdir) the sampler KLD sweep
            (scripts/port_dpm_step_sweep.py) of the gate's EMA weights:
-           DPM-5 and DPM-20 on the lambda grid and its two DDIM-50 legs,
-           the fused tail and unfused from the same draws, counted from
-           zero: attn_tail, groupnorm_silu, dual_head and ddim_head each
-           launched (launches_sweep in the kernels line), the two DDIM-50
-           KLDs within SWEEP_DDIM_RTOL
+           DPM-5 on the lambda grid and its two DDIM legs at
+           SWEEP_DDIM_STEPS (20; the smoke scale's 50 cut to make room for
+           the int8 phases), the fused tail and unfused from the same
+           draws, counted from zero: attn_tail, groupnorm_silu, dual_head
+           and ddim_head each launched (launches_sweep in the kernels
+           line), the two DDIM KLDs within SWEEP_DDIM_RTOL
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -2604,8 +2617,10 @@ def phase_evaluate(seed: int, workdir: str, net_final: str):
             d_ssim > EVAL_SSIM or rel > EVAL_OUT:
         raise AssertionError(f"evaluate: the card's first frame disagrees with the CPU's: "
                              f"{a.shape}, PSNR {d_psnr}, SSIM {d_ssim}, rel L2 {rel}")
-    return dict(n=out["n"], psnr=out["PSNR"], ssim=out["SSIM"],
-                frames_per_s=out["n"] / out["seconds"], cli_frames_per_s=out["n"] / wall,
+    return dict(n=out["n"], psnr=out["PSNR"], ssim=out["SSIM"], first=first,
+                save_folder=os.path.join(root, "out"), first_frame=card["frames"][0],
+                first_output=a, frames_per_s=out["n"] / out["seconds"],
+                cli_frames_per_s=out["n"] / wall,
                 steady_frames_per_s=steady, steady_frames_per_s_without_png=unwritten,
                 parts=parts, peak_bytes=peak, cpu_seconds=cpu_s, cpu_frame=c0,
                 d_psnr=d_psnr, d_ssim=d_ssim, out_rel_l2=rel, sid=sid)
@@ -4223,17 +4238,22 @@ def phase_gate(seed: int, workdir: str):
 
 
 # the inference kernels the sweep phase must launch, and how far apart its
-# fused and unfused DDIM-50 KLDs may be: both are bf16 on the card from the
+# fused and unfused DDIM KLDs may be: both are bf16 on the card from the
 # same draws, the fused tail carrying its update in fp32
 SWEEP_KERNELS = ("attn_tail", "groupnorm_silu", "dual_head", "ddim_head")
 SWEEP_DDIM_RTOL = 0.02
+# the sweep's depth: DDIM at 20 steps (the smoke scale's 50 took 45 of the
+# phase's 63 s; the fused and unfused legs still run from the same draws)
+# and DPM-5 on the lambda grid
+SWEEP_DDIM_STEPS = 20
+SWEEP_DPM_STEPS = "5"
 
 
 def phase_sweep(workdir: str):
     """The sampler KLD sweep on the gate phase's smoke workdir, counted
-    from zero: the EMA weights at DPM-5 and DPM-20 (lambda grid) and DDIM-50
-    fused and unfused. Asserts each of SWEEP_KERNELS launched and the two
-    DDIM-50 KLDs within SWEEP_DDIM_RTOL of each other."""
+    from zero: the EMA weights at DPM-SWEEP_DPM_STEPS (lambda grid) and
+    DDIM-SWEEP_DDIM_STEPS fused and unfused. Asserts each of SWEEP_KERNELS
+    launched and the two DDIM KLDs within SWEEP_DDIM_RTOL of each other."""
     import importlib.util
 
     from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -4245,7 +4265,8 @@ def phase_sweep(workdir: str):
     reset_launch_counts()
     t0 = time.time()
     result = sweep.main(["--workdir", os.path.join(workdir, "gate"), "--scale", "smoke",
-                         "--steps", "5,20", "--spacing", "lambda"])
+                         "--steps", SWEEP_DPM_STEPS, "--spacing", "lambda",
+                         "--set", f"ddim={SWEEP_DDIM_STEPS}"])
     seconds = time.time() - t0
     counts = launch_counts()
     rows = {(r["sampler"], r["steps"]): r for r in result["sweep"]}
@@ -4253,13 +4274,14 @@ def phase_sweep(workdir: str):
         log(f"  {r['sampler']}-{r['steps']}{' ' + r['spacing'] if r['spacing'] else ''}: KLD "
             f"{r['kld_symmetric']:.6f} ({r['vs_ddim_ratio']:.4f} of DDIM), std "
             f"{r['generated_noise_std']:.6f}, {r['seconds']:.1f} s")
-    fused = rows[("ddim", 50)]["kld_symmetric"]
-    unfused = rows[("ddim_unfused", 50)]["kld_symmetric"]
+    fused = rows[("ddim", SWEEP_DDIM_STEPS)]["kld_symmetric"]
+    unfused = rows[("ddim_unfused", SWEEP_DDIM_STEPS)]["kld_symmetric"]
     rel = abs(unfused - fused) / fused
-    log(f"  {seconds:.1f} s; DDIM-50 fused {fused:.6f} against unfused {unfused:.6f}: "
+    log(f"  {seconds:.1f} s; DDIM-{SWEEP_DDIM_STEPS} fused {fused:.6f} against unfused "
+        f"{unfused:.6f}: "
         f"{rel:.4%} apart (tolerance {SWEEP_DDIM_RTOL:.0%}); launches: {counts}")
     if rel > SWEEP_DDIM_RTOL:
-        raise AssertionError(f"sweep: fused DDIM-50 KLD {fused} and unfused {unfused} are "
+        raise AssertionError(f"sweep: fused DDIM KLD {fused} and unfused {unfused} are "
                              f"{rel:.4%} apart (tolerance {SWEEP_DDIM_RTOL:.0%})")
     missing = [name for name in SWEEP_KERNELS if counts[KERNEL_META[name][0]] == 0]
     if missing:
@@ -4267,9 +4289,289 @@ def phase_sweep(workdir: str):
     return dict(counts=counts, result=result, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# the int8 route (NOISEDIFF_INT8=1)
+PEAK_INT8_OPS = 1979e12
+# LSID's evaluation: one packed full SID frame, fp32 (the evaluation CLI)
+INT8_LSID_INPUT = (1, FULLFRAME[0], FULLFRAME[1], 4)
+# shapes no main path gives (B, H, W, Ci, Co, k, padding): ragged depth
+# steps (Ci 24, 48; 20, not a multiple of 8), Co 16, 72 and 20 (not a
+# multiple of 8), padding (0, 1) (a split frame's rows with their halos),
+# H and W of 1, odd sizes
+INT8_RAGGED = [(2, 37, 53, 24, 16, 3, (1, 1)), (1, 19, 23, 48, 72, 3, (0, 1)),
+               (3, 1, 1, 48, 24, 3, (1, 1)), (2, 9, 1, 16, 16, 1, (0, 0)),
+               (1, 33, 17, 20, 20, 3, (1, 1))]
+
+
+@contextlib.contextmanager
+def int8_route():
+    """NOISEDIFF_INT8=1 while models are built inside: each Conv2d reads it
+    at construction (the trainers refuse it; generation and evaluation take
+    it)."""
+    old = os.environ.get("NOISEDIFF_INT8")
+    os.environ["NOISEDIFF_INT8"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["NOISEDIFF_INT8"]
+        else:
+            os.environ["NOISEDIFF_INT8"] = old
+
+
+def int8_calls(model, *inputs):
+    """{(x shape, kq shape, padding, into, bias): calls} of one forward of
+    `model` (built under `int8_route`) on the card."""
+    import torch
+
+    from noisediff_tpu_torch.models import blocks
+
+    seen = {}
+    real = blocks.int8_conv
+
+    def rec(x, kq, sw, amax, padding, bias=None, into=None):
+        key = (tuple(x.shape), tuple(kq.shape), tuple(padding), into is not None,
+               bias is not None)
+        seen[key] = seen.get(key, 0) + 1
+        return real(x, kq, sw, amax, padding, bias, into)
+
+    blocks.int8_conv = rec
+    try:
+        with torch.no_grad():
+            model(*inputs)
+        if inputs[0].is_cuda:
+            torch.cuda.synchronize()
+    finally:
+        blocks.int8_conv = real
+    return seen
+
+
+def int8_operands(randn, key, dtype):
+    """Seeded operands of one int8 call shape: x, the quantized weight,
+    max|x| (the kernel's, held equal to the plain version's), the bias
+    and the previous part's output where the call has them."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import absmax, reference_absmax
+    from noisediff_tpu_torch.ops.kernels.int8_conv import out_size, quantize_weight
+
+    (b, h, w, ci), (co, k, _, _), pad, has_into, has_bias = key
+    x = randn(b, h, w, ci, scale=2.0, dtype=dtype)
+    kq, sw = quantize_weight(randn(co, ci, k, k, scale=(ci * k * k) ** -0.5))
+    ho, wo = out_size(x.shape, kq.shape, pad)
+    into = randn(b, ho, wo, co, dtype=dtype) if has_into else None
+    bias = randn(co, scale=0.1) if has_bias else None
+    amax = absmax(x)
+    if not torch.equal(amax, reference_absmax(x)):
+        raise AssertionError(f"absmax {key} {dtype}: {float(amax)} against "
+                             f"{float(reference_absmax(x))}")
+    return x, kq, sw, amax, pad, bias, into
+
+
+def int8_check(randn, key, dtype):
+    """The kernel against its plain version at one call shape: bit-equal
+    (the integer sums are exact on both sides and every other step is the
+    same IEEE operation); returns the operands."""
+    import torch
+
+    from noisediff_tpu_torch.ops.kernels import int8_conv, reference_int8_conv
+
+    ops = int8_operands(randn, key, dtype)
+    x, kq, sw, amax, pad, bias, into = ops
+    got = int8_conv(x, kq, sw, amax, pad, bias, None if into is None else into.clone())
+    want = reference_int8_conv(x, kq, sw, amax, pad, bias, into)
+    if got.shape != want.shape or not torch.equal(got, want):
+        err = float((got.float() - want.float()).abs().max()) if got.shape == want.shape else -1
+        raise AssertionError(f"int8_conv {key} {dtype}: not bit-equal to the plain version, "
+                             f"max abs err {err}")
+    return ops
+
+
+def int8_rows(randn, key, dtype, calls: dict):
+    """Check and time one call shape: the kernel (per call and on the
+    card's clock), its plain version, the bound, cuDNN's bf16 conv of the
+    same shape (the yardstick) and, at a 1x1, torch._int_mm of the same
+    integer product (library_ms; no PyTorch call computes the quantized
+    conv itself); absmax beside torch.linalg.vector_norm(x, inf). Returns
+    (int8_conv row, absmax row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv, reference_absmax
+    from noisediff_tpu_torch.ops.kernels import reference_int8_conv
+
+    x, kq, sw, amax, pad, bias, into = int8_check(randn, key, dtype)
+    (b, h, w, ci), (co, k, _, _) = key[:2]
+    dst = None if into is None else into.clone()
+    fn = lambda: int8_conv(x, kq, sw, amax, pad, bias, dst)  # noqa: E731
+    ms, dev_ms = time_ms(fn, reps=10), time_device_ms(fn, n=10, reps=2)
+    plain = time_ms(lambda: reference_int8_conv(x, kq, sw, amax, pad, bias, into), reps=3,
+                    warmup=1)
+    out = fn()
+    ops = 2.0 * out.numel() * ci * k * k
+    io = nbytes(x, kq, sw, out) + (nbytes(into) if into is not None else 0)
+    b_ms, b_by = bound(io, ops, PEAK_INT8_OPS)
+    xc = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wc = torch.randn(co, ci, k, k, device=x.device, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    cudnn = time_device_ms(lambda: F.conv2d(xc, wc, padding=pad), n=10, reps=2)
+    library = None
+    if k == 1:
+        xq = torch.randint(-127, 128, (b * h * w, ci), device=x.device, dtype=torch.int8)
+        try:
+            library = time_device_ms(lambda: torch._int_mm(xq, kq[:, 0, 0, :ci].t()), n=10,
+                                     reps=2)
+        except RuntimeError as exc:
+            log(f"    torch._int_mm refused ({b * h * w}, {ci}) x ({ci}, {co}): {exc}")
+    tag = dict(shape=[b, h, w, ci], dtype=str(dtype).replace("torch.", ""), **calls)
+    conv = dict(tag, kernel=[co, k, k, ci], padding=list(pad), into=into is not None,
+                bias=bias is not None, ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library, cudnn_bf16_ms=cudnn, max_abs_err=0.0)
+    a_dev = time_device_ms(lambda: absmax(x), n=10, reps=2)
+    a_ms = time_ms(lambda: absmax(x), reps=5)
+    a_plain = time_ms(lambda: reference_absmax(x), reps=3, warmup=1)
+    a_lib = time_device_ms(lambda: torch.linalg.vector_norm(x, float("inf")), n=10, reps=2)
+    a_bound = nbytes(x) / PEAK_BYTES * 1e3
+    amax_row = dict(tag, ms=a_ms, device_ms=a_dev, plain_ms=a_plain, bound_ms=a_bound,
+                    bound_by="bytes", library_ms=a_lib, max_abs_err=0.0)
+    log(f"    {key[0]} x {co}x{k}x{k} pad {tuple(pad)}{' +into' if into is not None else ''}"
+        f"{' +bias' if bias is not None else ''} {conv['dtype']} {calls}: dev {dev_ms:.4f} ms "
+        f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; per call {ms:.4f}; plain "
+        f"{plain:.3f}; cuDNN bf16 {cudnn:.4f}"
+        f"{'' if library is None else f'; _int_mm {library:.4f}'}); absmax dev {a_dev:.4f} "
+        f"({a_dev / a_bound:.2f}x {a_bound:.4f}; vector_norm {a_lib:.4f})")
+    return conv, amax_row
+
+
+def phase_int8_kernels(seed: int):
+    """The int8 kernels against their plain versions at every call shape
+    of one int8 evaluation of NoiseDiffNet dim 48 (B 4, 512^2, bf16; read
+    from a forward on the card) and of LSID's evaluation (one packed full
+    frame, fp32), both dtypes at each, and at INT8_RAGGED: bit-equal, and
+    absmax equal to max |x|. The main path's dtype at each is timed (rows
+    with `calls`, the convs of one generation evaluation, or `lsid_calls`,
+    one LSID evaluation)."""
+    import torch
+
+    from noisediff_tpu_torch.models import LSID, NoiseDiffNet
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 19)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    t0 = time.time()
+    with int8_route():
+        torch.manual_seed(seed)
+        net = NoiseDiffNet(dim=DIM, dtype=torch.bfloat16).to(dev).eval()
+        lsid = LSID().to(dev).eval()
+    x = randn(BATCH, CROP, CROP, 4)
+    cond = {"clean_img": x.abs() * 0.1, "position": x[..., :2].abs(),
+            "iso_ratio_idx": torch.tensor([24, 3, 5, 7], device=dev)}
+    gen = int8_calls(net, x, torch.tensor([999, 500, 20, 3], device=dev), cond)
+    lsid_calls = int8_calls(lsid, randn(*INT8_LSID_INPUT, scale=0.05).abs())
+    del net, lsid, x, cond
+    torch.cuda.empty_cache()
+    n_gen, n_lsid = sum(gen.values()), sum(lsid_calls.values())
+    log(f"  {n_gen} int8 convs an evaluation of NoiseDiffNet dim {DIM} at {BATCH}x{CROP}^2 "
+        f"(bf16) over {len(gen)} call shapes, {len({k[:2] for k in gen})} (input, kernel) "
+        f"shapes; LSID at {INT8_LSID_INPUT} (fp32): {n_lsid} over {len(lsid_calls)}")
+    conv_rows, amax_rows = [], []
+    for keys, timed, other, field in ((gen, torch.bfloat16, torch.float32, "calls"),
+                                      (lsid_calls, torch.float32, torch.bfloat16, "lsid_calls")):
+        for key, n in sorted(keys.items()):
+            calls = {"calls": 0, "lsid_calls": 0}
+            calls[field] = n
+            c, a = int8_rows(randn, key, timed, calls)
+            conv_rows.append(c)
+            amax_rows.append(a)
+            int8_check(randn, key, other)
+            torch.cuda.empty_cache()
+    for b, h, w, ci, co, k, pad in INT8_RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            for into, bias in ((False, False), (True, True)):
+                int8_check(randn, ((b, h, w, ci), (co, k, k, ci + (-ci % 32)), pad, into, bias),
+                           dtype)
+    log(f"  every shape bit-equal to the plain version in fp32 and bf16 (and "
+        f"{len(INT8_RAGGED)} ragged shapes with and without the previous part and the bias); "
+        f"{time.time() - t0:.1f} s")
+    tot = {k: sum(r[k] * r["calls"] for r in conv_rows) for k in ("device_ms", "bound_ms",
+                                                                 "cudnn_bf16_ms")}
+    a_tot = {k: sum(r[k] * r["calls"] for r in amax_rows) for k in ("device_ms", "bound_ms")}
+    lsid_tot = {k: sum(r[k] * r["lsid_calls"] for r in conv_rows) for k in ("device_ms",
+                                                                          "bound_ms")}
+    log(f"  an evaluation's int8 convs: {tot['device_ms']:.4f} ms on the card's clock "
+        f"(bound {tot['bound_ms']:.4f}; cuDNN's bf16 convs of the same shapes "
+        f"{tot['cudnn_bf16_ms']:.4f}); its absmax calls {a_tot['device_ms']:.4f} (bound "
+        f"{a_tot['bound_ms']:.4f}); LSID's evaluation: int8 convs {lsid_tot['device_ms']:.4f} "
+        f"ms (bound {lsid_tot['bound_ms']:.4f})")
+    return {"int8_conv": conv_rows, "absmax": amax_rows, "per_eval": n_gen, "lsid": n_lsid}
+
+
+def phase_int8_generation(seed: int, workdir: str, ckpt: str, main: dict, per_eval: int):
+    """The main phase's DPM-10 run (the same tree, checkpoint and seed)
+    through the generation CLI with NOISEDIFF_INT8=1: per_eval int8_conv and
+    absmax launches an evaluation beside the other kernels' per batch;
+    patches/s beside the main phase's, and the patches' distance from the
+    bf16 run's."""
+    import numpy as np
+
+    argv = gen_argv(workdir, ckpt, seed, "int8", ["--sampler", "dpm", "--dpm_spacing", "lambda"])
+    per_batch = {"fused_attn_tail": 9 * DPM_STEPS, "fused_groupnorm_film_silu": 42 * DPM_STEPS,
+                 "fused_dual_head": DPM_STEPS, "int8_conv": per_eval * DPM_STEPS,
+                 "absmax": per_eval * DPM_STEPS, "fused_ddim_head_update": 0, "conv_wgrad": 0}
+    with int8_route():
+        out = run_generation(argv, per_batch, "int8 generation")
+    main_dir = os.path.join(workdir, "out", "ISO800_Ratio250", "npy", "generated")
+    a = np.stack([np.load(f) for f in out["files"]])
+    b = np.stack([np.load(os.path.join(main_dir, os.path.basename(f))) for f in out["files"]])
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    log(f"  {per_eval} int8_conv + {per_eval} absmax launches an evaluation; "
+        f"{out['patches_per_s']:.4f} patches/s ({out['steady_patches_per_s']:.4f} after the "
+        f"first batch) against the bf16 run's {main['patches_per_s']:.4f} "
+        f"({main['steady_patches_per_s']:.4f}); patches rel L2 from the bf16 run's {rel:.5f}, "
+        f"std {a.std():.6f} against {b.std():.6f}")
+    if not np.isfinite(a).all() or rel > 0.5:
+        raise AssertionError(f"int8 generation: patches {rel} rel L2 from the bf16 run's")
+    return dict(out, rel_l2=rel, std=float(a.std()), bf16_std=float(b.std()))
+
+
+def phase_int8_evaluate(evaluation: dict):
+    """The evaluate phase's first frame through the evaluation CLI's
+    `evaluate` with NOISEDIFF_INT8=1 (LSID in fp32): 21 int8_conv and
+    absmax launches, PSNR and SSIM beside the fp32 route's, the output's
+    distance from it and the frame's seconds."""
+    import numpy as np
+
+    from noisediff_tpu_torch.cli import test_denoising
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    argv = [a + "_int8" if a == evaluation["save_folder"] else a for a in evaluation["first"]]
+    reset_launch_counts()
+    with int8_route():
+        out = test_denoising.evaluate(test_denoising.build_parser().parse_args(
+            argv + ["--device", "cuda"]), keep=1)
+    counts = launch_counts()
+    f, f32 = out["frames"][0], evaluation["first_frame"]
+    rel = float(np.linalg.norm(out["outputs"][0].astype(np.float64) - evaluation["first_output"])
+                / np.linalg.norm(evaluation["first_output"].astype(np.float64)))
+    log(f"  PSNR {f['PSNR']:.6f} / SSIM {f['SSIM']:.7f} against the fp32 route's "
+        f"{f32['PSNR']:.6f} / {f32['SSIM']:.7f}; output rel L2 {rel:.5f}; {counts['int8_conv']} "
+        f"int8_conv, {counts['absmax']} absmax launches; forward {f['forward_s'] * 1e3:.4f} ms, "
+        f"frame {f['frame_s']:.4f} s (the fp32 route's first frame: forward "
+        f"{f32['forward_s'] * 1e3:.4f} ms, frame {f32['frame_s']:.4f} s)")
+    if counts["int8_conv"] != 21 or counts["absmax"] != 21 or \
+            not np.isfinite([f["PSNR"], f["SSIM"]]).all() or rel > 0.5:
+        raise AssertionError(f"int8 evaluate: {counts}, PSNR {f['PSNR']}, rel L2 {rel}")
+    return dict(psnr=f["PSNR"], ssim=f["SSIM"], fp32_psnr=f32["PSNR"], fp32_ssim=f32["SSIM"],
+                rel_l2=rel, forward_s=f["forward_s"], frame_s=f["frame_s"], counts=counts)
+
+
 KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
                    "fused_dual_head", "fused_ddim_head_update", "gn_stats", "gn_grad_stats",
-                   "conv_wgrad", "flash_attention", "groupnorm_silu_apply")
+                   "conv_wgrad", "flash_attention", "groupnorm_silu_apply", "int8_conv",
+                   "absmax")
 
 KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is summed over)
     "attn_tail": ("fused_attn_tail", "noisediff_tpu_torch/csrc/attn_tail.cu",
@@ -4296,6 +4598,11 @@ KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is 
     "groupnorm_silu_apply": ("groupnorm_silu_apply", "noisediff_tpu_torch/csrc/groupnorm_silu.cu",
                              "noisediff_tpu/ops/pallas/groupnorm_silu.py:105",
                              "sharded full-frame evaluation (a rank of 2)"),
+    # no Pallas kernel: XLA's int8 conv and max|x| in blocks._quantized_conv
+    "int8_conv": ("int8_conv", "noisediff_tpu_torch/csrc/int8_conv.cu",
+                  "noisediff_tpu/models/blocks.py:209", "int8 evaluation (NOISEDIFF_INT8=1)"),
+    "absmax": ("absmax", "noisediff_tpu_torch/csrc/int8_conv.cu",
+               "noisediff_tpu/models/blocks.py:203", "int8 evaluation (NOISEDIFF_INT8=1)"),
 }
 
 
@@ -4332,6 +4639,11 @@ def kernels_line(results, launches):
         sh = [r for r in rows if r.get("sharded_calls")]
         if sh:
             device.update({f"sharded_{k}": sum(r[k] * r["sharded_calls"] for r in sh)
+                           for k in ("device_ms", "plain_ms", "bound_ms")})
+        # one LSID evaluation of a packed full frame (fp32), where it has such rows
+        ls = [r for r in rows if r.get("lsid_calls")]
+        if ls:
+            device.update({f"lsid_{k}": sum(r[k] * r["lsid_calls"] for r in ls)
                            for k in ("device_ms", "plain_ms", "bound_ms")})
         # the bound of the shapes that carry most of the bound time
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "bytes")
@@ -4400,6 +4712,9 @@ def main(argv=None) -> int:
     phase_model(args.seed)
     log("[profile] where one model evaluation spends its time")
     phase_profile(args.seed)
+    log("[int8] the int8 route's kernels (NOISEDIFF_INT8=1) against their plain versions")
+    int8 = phase_int8_kernels(args.seed)
+    results.update(int8_conv=int8["int8_conv"], absmax=int8["absmax"])
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         ckpt = gen_setup(workdir, args.seed)
@@ -4415,6 +4730,8 @@ def main(argv=None) -> int:
                                 ["--sampler", "dpm", "--no_mixed_precision"]),
                        {k: 0 for k in KERNEL_WRAPPERS}, "fp32 generation", batches=1)
         log(f"  1 batch of {BATCH} patches, fp32, no kernel launched")
+        log("[int8] the main phase's DPM-10 generation through the CLI with NOISEDIFF_INT8=1")
+        int8_gen = phase_int8_generation(args.seed, workdir, ckpt, gen, int8["per_eval"])
         log("[denoise] LSID trained through the denoising CLI on the main phase's patches")
         denoise = phase_denoise(args.seed, workdir, os.path.join(
             workdir, "out", "ISO800_Ratio250", "npy", "generated"))
@@ -4431,6 +4748,8 @@ def main(argv=None) -> int:
         log("[evaluate] the denoiser's PSNR / SSIM through the test_denoising CLI, full frames")
         evaluation = phase_evaluate(args.seed, workdir, os.path.join(
             workdir, "denoise", "weights", "train_denoising", "snapshot", "net_final.pth"))
+        log("[int8] the first SID frame through the evaluation CLI with NOISEDIFF_INT8=1")
+        int8_eval = phase_int8_evaluate(evaluation)
         log("[kld] real against generated noise through the eval_kld CLI")
         phase_kld(evaluation["sid"], os.path.join(
             workdir, "out", "ISO800_Ratio250", "npy", "generated"))
@@ -4482,8 +4801,8 @@ def main(argv=None) -> int:
         log("[gate] the closed-loop learning gate through the CLIs, smoke scale, bf16")
         gate = phase_gate(args.seed, workdir)
         log(f"  gate phase {gate['seconds']:.1f} s of gate run")
-        log("[sweep] the sampler KLD sweep on the gate's EMA weights: DPM-5, DPM-20 lambda, "
-            "DDIM-50 fused and unfused")
+        log(f"[sweep] the sampler KLD sweep on the gate's EMA weights: DPM-{SWEEP_DPM_STEPS} "
+            f"lambda, DDIM-{SWEEP_DDIM_STEPS} fused and unfused")
         sweep = phase_sweep(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4550,6 +4869,11 @@ def main(argv=None) -> int:
     launches["conv_wgrad"] = (n + n_pos, {"launches_per_step": n / wgrad["steps"],
                                           "launches_posemb": n_pos})
     launches["flash_attention"] = (attn["counts"]["flash_attention"], {})
+    for name in ("int8_conv", "absmax"):
+        n, n_eval = int8_gen["counts"][name], int8_eval["counts"][name]
+        launches[name] = (n + n_eval, {
+            "launches_generation": n, "launches_per_eval": n / (N_BATCHES * DPM_STEPS),
+            "launches_evaluate": n_eval})
     print(json.dumps(kernels_line(results, launches)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -33,6 +33,14 @@ all-gathers the rest (`_column_parallel`); the kernels that read a whole
 weight (the attention tail's FF and projection, the heads) get it
 all-gathered (`whole_weight`).
 
+Under NOISEDIFF_INT8=1 (the JAX package's w8a8 inference route,
+blocks.py:173-216 and :510-548 there) a `Conv2d` of at least 16 input and
+16 output channels quantizes its weights per output channel and its input
+per tensor and runs the int8_conv kernel (`Conv2d.int8`, decided at
+construction); a skip join reaches it as a tuple of parts, each quantized
+on its own, with no concat built. The resampling convs (`Upsample`,
+`Downsample`) stay in the compute dtype, as the JAX package's `_conv` does.
+
 Stride-1 SAME convolutions can take their weight gradient from the
 conv_wgrad kernel instead of cuDNN, under the JAX package's variables
 (`wgrad_kernel_on`), where the input is bf16 and the widths are ones the
@@ -42,6 +50,7 @@ are defined, as in the reference, but no shipped model uses them.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import os
 from typing import Optional, Sequence, Union
@@ -51,14 +60,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import (
-    conv_wgrad, flash_attention, fused_attn_tail, fused_groupnorm_film_silu, gn_grad_stats,
-    gn_stats, groupnorm_silu_apply, reference_attn_tail, reference_flash_attention,
-    reference_gn_grad_stats, reference_gn_stats, reference_groupnorm_film_silu,
-    reference_groupnorm_silu_apply)
+    absmax, conv_wgrad, flash_attention, fused_attn_tail, fused_groupnorm_film_silu,
+    gn_grad_stats, gn_stats, groupnorm_silu_apply, int8_conv, reference_attn_tail,
+    reference_flash_attention, reference_gn_grad_stats, reference_gn_stats,
+    reference_groupnorm_film_silu, reference_groupnorm_silu_apply)
 from ..ops.kernels.attn_tail import TILED_MAX_C as ATTN_TAIL_MAX_C
-from ..ops.kernels.attn_tail import gelu
+from ..ops.kernels.attn_tail import gelu, reference_attn_chain
 from ..ops.kernels.dual_head import _KERNEL_WIDTHS as HEAD_WIDTHS
 from ..ops.kernels.flash_attention import _HEAD_DIMS as FLASH_HEAD_DIMS
+from ..ops.kernels.int8_conv import MIN_CHANNELS as INT8_MIN_CHANNELS
+from ..ops.kernels.int8_conv import int8_enabled, quantize_weight
 from ..parallel import mesh
 
 CL = torch.channels_last
@@ -216,14 +227,23 @@ class Conv2d(nn.Conv2d):
     (k > 1) takes k // 2 rows from each neighbouring rank
     (`mesh.halo_rows`) and pads only along W. With `tp` set
     (`mesh.shard_parameters`) the weight is this rank's block of the
-    output channels and the conv is column-parallel."""
+    output channels and the conv is column-parallel.
+
+    `int8` (NOISEDIFF_INT8=1 at construction, `quantize` and both widths
+    at least 16: the JAX `_ConvParams` rule) takes the int8 route
+    (`_int8`) wherever the wgrad route is not taken. The input may then be
+    a tuple of maps, the parts of a channel concat; on the other routes a
+    tuple is concatenated first."""
 
     tp = None  # the model axis's ModelShard where the weight is a block
 
     def __init__(self, cin: int, cout: int, ks: int, stride: int = 1,
-                 padding: Optional[int] = None, bias: bool = True):
+                 padding: Optional[int] = None, bias: bool = True, quantize: bool = True):
         super().__init__(cin, cout, ks, stride=stride,
                          padding=ks // 2 if padding is None else padding, bias=bias)
+        self.int8 = (quantize and int8_enabled() and cin >= INT8_MIN_CHANNELS
+                     and cout >= INT8_MIN_CHANNELS)
+        self._int8_cache = None  # (weight key, [(kq, sw) per part])
 
     def wgrad_route(self, x: torch.Tensor) -> bool:
         """Only where a weight gradient will be taken (generation reads no
@@ -241,10 +261,14 @@ class Conv2d(nn.Conv2d):
                 and x.dtype == torch.bfloat16 and ci % 16 == 0 and co % 16 == 0
                 and wgrad_channels_ok(ci, co) and wgrad_kernel_on(x, self.training))
 
-    def forward(self, x, with_bias: bool = True):
+    def forward(self, x: Tensors, with_bias: bool = True):
         """with_bias False: the conv without its bias, which the caller
         adds (Block folds it into the groupnorm_silu kernel)."""
         bias = self.bias if with_bias else None
+        parts = tuple(x) if isinstance(x, (list, tuple)) else (x,)
+        if self.int8 and not self.wgrad_route(parts[0]):
+            return self._int8(parts, bias)
+        x = cat_channels(x)
         shard = mesh.spatial()
         wgrad = self.wgrad_route(x)
         if wgrad and shard is not None:
@@ -261,6 +285,48 @@ class Conv2d(nn.Conv2d):
         if self.tp is not None:
             return _column_parallel(self.tp, x, conv, bias, 1)
         return conv(x, bias)
+
+    def int8_weights(self, splits) -> list:
+        """[(kq, sw)] of the weight's input-channel slices of widths
+        `splits` (`quantize_weight`, from the fp32 parameter), cached until
+        the weight changes: an in-place update (load_state_dict, an EMA
+        copy) moves its version, a new tensor its address."""
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.device, tuple(splits))
+        if self._int8_cache is None or self._int8_cache[0] != key:
+            if sum(splits) != w.shape[1]:
+                raise ValueError(f"parts of {list(splits)} channels for a conv of {w.shape[1]}")
+            with torch.no_grad():
+                bounds = [0, *itertools.accumulate(splits)]
+                weights = [quantize_weight(w[:, a:b]) for a, b in zip(bounds, bounds[1:])]
+            self._int8_cache = (key, weights)
+        return self._int8_cache[1]
+
+    def _int8(self, parts, bias):
+        """The int8 route: per part, max|x| on the device (all-reduced with
+        MAX over a spatial line, where the JAX global array's maximum is
+        the whole frame's), then the int8_conv kernel, which adds the
+        previous part's output and, after the last part, the bias."""
+        kh, kw = self.kernel_size
+        if self.tp is not None:
+            raise NotImplementedError("the int8 route does not run on the model axis (no "
+                                      "generation path does; the trainers refuse NOISEDIFF_INT8)")
+        if self.stride != (1, 1) or self.padding != (kh // 2, kw // 2):
+            raise NotImplementedError("the int8 route takes a stride-1 SAME conv")
+        shard = mesh.spatial()
+        weights = self.int8_weights([p.shape[1] for p in parts])
+        y = None
+        for i, (part, (kq, sw)) in enumerate(zip(parts, weights)):
+            xh = to_nhwc(part)
+            amax = absmax(xh)
+            pad = (kh // 2, kw // 2)
+            if shard is not None:
+                amax = mesh.all_reduce_max(amax, shard.group)
+                if kh > 1:
+                    xh, pad = to_nhwc(mesh.halo_rows(part, kh // 2, shard)), (0, kw // 2)
+            last = i == len(parts) - 1
+            y = int8_conv(xh, kq, sw, amax, pad, bias if last else None, y)
+        return to_nchw(y)
 
     def _sharded(self, x, bias, shard):
         """This rank's rows of the conv: the rows with their halo, padded
@@ -576,7 +642,7 @@ class Block(nn.Module):
         self.proj = Conv2d(dim_in, dim_out, 3)
         self.norm = GroupNorm(dim_out, groups, dtype=dtype)
 
-    def forward(self, x, scale_shift=None):
+    def forward(self, x: Tensors, scale_shift=None):
         if self.norm.folds_bias(scale_shift):
             return self.norm(self.proj(x, with_bias=False), scale_shift, self.proj.bias)
         return self.norm(self.proj(x), scale_shift)
@@ -596,9 +662,12 @@ class ResnetBlock(nn.Module):
         self.block1 = Block(dim_in, dim_out, groups, dtype)
         self.block2 = Block(dim_out, dim_out, groups, dtype)
         self.res_conv = Conv2d(dim_in, dim_out, 1) if dim_in != dim_out else nn.Identity()
+        # a skip join's parts go to both convs unjoined on the int8 route
+        self.takes_parts = self.block1.proj.int8 and isinstance(self.res_conv, Conv2d)
 
     def forward(self, x: Tensors, time_emb=None):
-        x = cat_channels(x)
+        if not self.takes_parts:
+            x = cat_channels(x)
         scale_shift = None
         if self.mlp is not None and time_emb is not None:
             t = self.mlp(time_emb)[:, :, None, None]
@@ -682,6 +751,13 @@ class AttnBlock(nn.Module):
     def forward(self, x, context):
         tok = self.attn.token(context.to(x.dtype))
         ff1, ff2 = self.ff.net[0][0], self.ff.net[2]
+        if not self.kernel and self.proj_out.int8:
+            # the plain chain with a quantized proj_out, as the JAX block's
+            # unfused route (its proj_out is a `_ConvParams` conv)
+            h = reference_attn_chain(to_nhwc(x), tok, self.norm2.weight, self.norm2.bias,
+                                     whole_weight(ff1), ff1.bias, whole_weight(ff2), ff2.bias,
+                                     self.norm2.eps)
+            return self.proj_out(to_nchw(h)) + x
         tail = fused_attn_tail if self.kernel else reference_attn_tail
         out = tail(
             to_nhwc(x), tok, self.norm2.weight, self.norm2.bias, whole_weight(ff1), ff1.bias,
@@ -770,10 +846,11 @@ class Downsample(nn.Sequential):
     Run as the equal 2x2 stride-2 conv: input channel c*4 + p1*2 + p2 of
     the 1x1 kernel is tap (p1, p2) of channel c, so the (O, 4C, 1, 1)
     weight viewed as (O, C, 2, 2) is that conv's kernel; the rearranged
-    tensor is never made."""
+    tensor is never made. It stays in the compute dtype under
+    NOISEDIFF_INT8, as the JAX package's strided Downsample."""
 
     def __init__(self, dim_in: int, dim_out: int):
-        super().__init__(nn.Identity(), Conv2d(dim_in * 4, dim_out, 1))
+        super().__init__(nn.Identity(), Conv2d(dim_in * 4, dim_out, 1, quantize=False))
 
     def forward(self, x):
         conv = self[1]
@@ -796,10 +873,13 @@ class Downsample(nn.Sequential):
 
 
 class Upsample(nn.Sequential):
-    """nearest x2 + 3x3 conv (:72-76)."""
+    """nearest x2 + 3x3 conv (:72-76). Its conv stays in the compute dtype
+    under NOISEDIFF_INT8, as the JAX package's phase-decomposed Upsample
+    (which calls `_conv`, not `_ConvParams`)."""
 
     def __init__(self, dim_in: int, dim_out: int):
-        super().__init__(nn.Upsample(scale_factor=2, mode="nearest"), Conv2d(dim_in, dim_out, 3))
+        super().__init__(nn.Upsample(scale_factor=2, mode="nearest"),
+                         Conv2d(dim_in, dim_out, 3, quantize=False))
 
     def forward(self, x):
         y = F.interpolate(x, scale_factor=2, mode="nearest").contiguous(memory_format=CL)

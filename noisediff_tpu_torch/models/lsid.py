@@ -3,7 +3,11 @@
 Port of noisediff_tpu/models/lsid.py (reference `models/archs/SID_arch.py:
 49-175`), the plain graph. The JAX model's TPU lowerings (the width fold,
 the phase-matmul ConvTranspose, the folded pool halving and the packed
-head) compute the same math and are not carried over.
+head) compute the same math and are not carried over. Under NOISEDIFF_INT8=1
+the 3x3 convs of at least 16 input and output channels take the int8 route
+(`blocks.Conv2d.int8`; 21 a forward at fold 1, as in the JAX model), a
+decoder level's first conv on the (upsampled, skip) parts without a concat;
+conv1_1 (4 in) and conv10 (4 out) stay in the compute dtype.
 
 4 channels in and out; per encoder level two conv3x3 + LeakyReLU(0.2)
 (widths w, 2w, 4w, 8w, 16w; w = 32 in the reference) and a 2x2/2 max pool
@@ -100,5 +104,7 @@ class LSID(nn.Module):
         for level in range(6, 10):
             skip = skips.pop()
             up = getattr(self, f"up{level}")(x)[:, :, : skip.shape[2], : skip.shape[3]]
-            x = self._block(f"conv{level}", torch.cat([up, skip], dim=1))
+            # the int8 route quantizes the two parts on their own (no concat)
+            join = getattr(self, f"conv{level}_1").int8
+            x = self._block(f"conv{level}", (up, skip) if join else torch.cat([up, skip], dim=1))
         return self.conv10(x).permute(0, 2, 3, 1)

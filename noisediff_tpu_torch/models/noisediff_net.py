@@ -2,12 +2,17 @@
 
 Port of noisediff_tpu/models/noisediff_net.py (reference
 `models/archs/Diffusion_arch.py:447-646`), the unfolded graph. The TPU
-lowerings of the JAX model (width fold, packed heads, int8) compute the
-same math and are not carried over. The output head is the dual_head
-kernel. Each block, and the head, runs its kernel or its plain version as
-`blocks.runs_kernel` decides once from the compute dtype and its channel
-width: a bf16 model runs the kernels (at dim 48 every one), an fp32 model
-(`dtype=None`) none.
+lowerings of the JAX model (width fold, packed heads) compute the same
+math and are not carried over. The w8a8 int8 route (NOISEDIFF_INT8=1) does
+not compute the same math and is carried over (`blocks.Conv2d.int8`): it
+quantizes the convs of at least 16 input and output channels that the JAX
+model's corresponding route quantizes (the unfolded one; on the fused
+routes the heads and the attention tail stay in the compute dtype inside
+their kernels, as in the JAX package's fused routes). The output head is
+the dual_head kernel. Each block, and the head, runs its kernel or its
+plain version as `blocks.runs_kernel` decides once from the compute dtype
+and its channel width: a bf16 model runs the kernels (at dim 48 every
+one), an fp32 model (`dtype=None`) none.
 
 4-stage UNet (dim_mults 1, 2, 4, 8): 7x7 init conv; per down stage two
 time-FiLM ResnetBlocks, an ISO cross-attention AttnBlock and a
@@ -52,6 +57,7 @@ from .blocks import (
     TimeMlp,
     Upsample,
     runs_kernel,
+    to_nchw,
     to_nhwc,
     weight_matrix,
     whole_weight,
@@ -203,8 +209,14 @@ class NoiseDiffNet(nn.Module):
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 condition: Dict[str, torch.Tensor]) -> torch.Tensor:
         """`trunk`'s arguments; returns (B, H, W, 4) in the model dtype."""
+        maps = self.trunk(x, time, condition)
+        if not self.head_kernel and self.shot_mlp3.fc1.int8:
+            # the JAX model's unfused heads, whose shot_mlp3.fc1 is quantized:
+            # shot_mlp3(shot + shot_res) + final_conv(h) in the model dtype
+            h, shot, shot_res = (to_nchw(m) for m in maps)
+            return to_nhwc(self.shot_mlp3(shot + shot_res) + self.final_conv(h))
         head = fused_dual_head if self.head_kernel else reference_dual_head
-        out = head(*self.trunk(x, time, condition), *self.head_weights())
+        out = head(*maps, *self.head_weights())
         # the head sums in fp32; the model's output dtype is its compute
         # dtype, as in the JAX model (noisediff_net.py:350-354)
         return out.to(self.dtype or x.dtype)

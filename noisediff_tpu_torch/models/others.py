@@ -39,7 +39,6 @@ from .blocks import (
     ResnetBlock2,
     TimeMlp,
     Upsample,
-    cat_channels,
     to_nhwc,
 )
 
@@ -151,7 +150,7 @@ class PosEmbUNet(nn.Module):
 
         h = self.init_conv(nchw(x))
         r = h
-        h = self.cond_concat_conv(cat_channels((h, clean_emb)))
+        h = self.cond_concat_conv((h, clean_emb))  # parts on the int8 route, else a concat
         h = self.pos_block1(h, pos_emb)
         skips = []
         for block1, block2, attn, down in self.downs:

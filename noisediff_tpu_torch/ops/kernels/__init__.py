@@ -13,11 +13,12 @@ from .gn_stats import gn_grad_stats, gn_stats, reference_gn_grad_stats, referenc
 from .groupnorm_silu import (
     fused_groupnorm_film_silu, groupnorm_silu_apply, reference_groupnorm_film_silu,
     reference_groupnorm_silu_apply)
+from .int8_conv import absmax, int8_conv, reference_absmax, reference_int8_conv
 
 # every kernel wrapper of the port (each carries `.launches`)
 KERNELS = (fused_attn_tail, fused_attn_tail_bwd, fused_groupnorm_film_silu, fused_dual_head,
            fused_ddim_head_update, gn_stats, gn_grad_stats, conv_wgrad, flash_attention,
-           groupnorm_silu_apply)
+           groupnorm_silu_apply, int8_conv, absmax)
 
 
 def reset_launch_counts() -> None:
@@ -32,6 +33,7 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "absmax",
     "conv_wgrad",
     "ddim_step_scalars",
     "flash_attention",
@@ -43,7 +45,9 @@ __all__ = [
     "gn_grad_stats",
     "gn_stats",
     "groupnorm_silu_apply",
+    "int8_conv",
     "launch_counts",
+    "reference_absmax",
     "reference_attn_tail",
     "reference_attn_tail_bwd",
     "reference_conv_wgrad",
@@ -54,5 +58,6 @@ __all__ = [
     "reference_gn_stats",
     "reference_groupnorm_film_silu",
     "reference_groupnorm_silu_apply",
+    "reference_int8_conv",
     "reset_launch_counts",
 ]

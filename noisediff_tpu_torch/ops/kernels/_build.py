@@ -30,7 +30,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("attn_tail", "attn_tail_bwd", "groupnorm_silu", "dual_head", "gn_stats", "conv_wgrad",
-           "flash_attention")
+           "flash_attention", "int8_conv")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -294,6 +294,14 @@ def reference_attn_tail(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, eps: 
     vectors fp32. Intermediates are stored in x's dtype where the TPU
     kernel's `_tile_chain` stores them: n, the FF1 output and GELU's, f,
     f + tok2, the proj output and the result."""
+    t2 = reference_attn_chain(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    return _linear(t2, wp, bp).to(x.dtype) + x
+
+
+def reference_attn_chain(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
+    """The chain before the projection, FF(LN(x + tok)) + (x + tok), in
+    x's dtype: the input of AttnBlock's proj_out (`reference_attn_tail`'s
+    arguments without wp, bp)."""
     dt = x.dtype
     tok2 = x + tok[:, None, None, :].to(dt)
     t = tok2.float()
@@ -302,8 +310,7 @@ def reference_attn_tail(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, eps: 
     var = (d * d).mean(-1, keepdim=True)
     n = (d * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()).to(dt)
     h = gelu(_linear(n, w1, b1).to(dt))
-    t2 = _linear(h, w2, b2).to(dt) + tok2
-    return _linear(t2, wp, bp).to(dt) + x
+    return _linear(h, w2, b2).to(dt) + tok2
 
 
 def reference_attn_tail_bwd(x, tok, ln_scale, ln_bias, w1, b1, w2, b2, wp, bp, g,

@@ -354,7 +354,8 @@ GN_SPAN = "nd::gn_all_reduce"
 LOSS_SPAN = "nd::loss_all_reduce"
 TP_GATHER_SPAN = "nd::tp_gather"
 TP_REDUCE_SPAN = "nd::tp_reduce"
-SPANS = (HALO_SPAN, GN_SPAN, LOSS_SPAN, TP_GATHER_SPAN, TP_REDUCE_SPAN)
+INT8_SPAN = "nd::int8_amax"
+SPANS = (HALO_SPAN, GN_SPAN, LOSS_SPAN, TP_GATHER_SPAN, TP_REDUCE_SPAN, INT8_SPAN)
 
 
 # ---------------------------------------------------------------------------
@@ -553,6 +554,16 @@ def all_reduce_sum(t: torch.Tensor, group: Any = None, span: str = GN_SPAN) -> t
     the gradient is all-reduced over the same group. `span` names the
     profiler span (GroupNorm's statistics by default)."""
     return _AllReduceSum.apply(t, group, span)
+
+
+def all_reduce_max(t: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """The maximum of t over `group`'s ranks (None: the whole world), a new
+    tensor on t's device. Not differentiable: it serves the int8 route's
+    activation scale, which is inference only."""
+    with torch.profiler.record_function(INT8_SPAN):
+        out = _wire(t).clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        return out.to(t.device)
 
 
 def gather_rows(x: torch.Tensor, shard: SpatialShard, dim: int = 1) -> Optional[torch.Tensor]:

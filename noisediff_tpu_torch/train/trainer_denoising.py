@@ -51,7 +51,7 @@ from . import checkpoint as ckpt
 from .schedules import denoising_staircase_lr
 from .state import make_denoising_train_step, make_optimizer, set_learning_rate
 from .trainer_diffusion import (
-    _cpu_state, _DeviceClock, rank_logger, run_shard, step_seed, upload_batch)
+    _cpu_state, _DeviceClock, rank_logger, refuse_int8, run_shard, step_seed, upload_batch)
 
 # the tensors a denoising step reads
 BATCH_KEYS = ("noisy_img", "clean_img", "iso", "ratio")
@@ -62,6 +62,7 @@ _DARKSHADING_SETS = ("SyntheticNoisDiffDenoisingDataset", "RealSonyDenoisingData
 
 class Trainer:
     def __init__(self, args):
+        refuse_int8(args)
         self.args = args
         self.device = resolve_device(getattr(args, "device", "cuda"))
         self.shard = run_shard(args)

@@ -56,6 +56,7 @@ from ..data.manifest import npy_patch_name
 from ..data.sampler import StridedShardSampler
 from ..diffusion.gaussian import GaussianDiffusion, default_dpm_steps
 from ..models import define_network, is_unread_parameter
+from ..ops.kernels.int8_conv import int8_enabled
 from ..ops.schedules import make_schedule
 from ..parallel import mesh
 from ..utils.logging import ScalarLogger
@@ -178,6 +179,18 @@ class _DeviceClock:
         return start.elapsed_time(end) / 1e3 if self.cuda else end - start
 
 
+# the JAX trainers' message (train/trainer_diffusion.py:59-62 there)
+INT8_TRAIN_ERROR = ("NOISEDIFF_INT8 is inference-only (round/clip has zero gradient a.e.); "
+                    "unset it to train.")
+
+
+def refuse_int8(args) -> None:
+    """Both trainers refuse the int8 route (NOISEDIFF_INT8=1) in the train
+    phase, as the JAX trainers do."""
+    if args.phase == "train" and int8_enabled():
+        raise RuntimeError(INT8_TRAIN_ERROR)
+
+
 class Trainer:
     # DDIM takes the fused tail where the model has one (`sampler`); a
     # caller sets False to sample it unfused from the same draws
@@ -186,6 +199,7 @@ class Trainer:
     def __init__(self, args):
         if args.phase not in ("train", "test"):
             raise ValueError(f"--phase must be train or test, got {args.phase!r}")
+        refuse_int8(args)
         self.args = args
         self.device = resolve_device(getattr(args, "device", "cuda"))
         self.shard = run_shard(args)

@@ -1008,7 +1008,9 @@ def test_kernels_launch_on_the_tensors_card(dev):
     (384) routes, its backward on the fused (48) and tiled (96) ones."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
-    from noisediff_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from noisediff_tpu_torch.ops.kernels import (
+        absmax, int8_conv, launch_counts, reference_absmax, reference_int8_conv,
+        reset_launch_counts)
 
     one, bf = torch.device("cuda", 1), torch.bfloat16
     torch.cuda.set_device(0)
@@ -1047,6 +1049,11 @@ def test_kernels_launch_on_the_tensors_card(dev):
         q, k, v = (_randn(one, 2, 2, 128, 32, dtype=bf, seed=s) for s in range(3))
         checks.append(("flash_attention", flash_attention(q, k, v),
                        reference_flash_attention(q, k, v)))
+        xi, kq, sw = _int8_operands(one, 2, 9, 11, 48, 40, 3, bf)
+        amax = absmax(xi)
+        checks.append(("absmax", amax, reference_absmax(xi)))
+        checks.append(("int8_conv", int8_conv(xi, kq, sw, amax, (1, 1)),
+                       reference_int8_conv(xi, kq, sw, amax, (1, 1))))
         torch.cuda.synchronize(one)
         assert torch.cuda.current_device() == 0
     finally:
@@ -1228,3 +1235,139 @@ def test_sharded_full_frame_on_one_card(dev, tmp_path):
         assert (c["gn_stats"], c["groupnorm_silu_apply"], c["fused_groupnorm_film_silu"]) == (
             88, 84, 0), c
         assert c["fused_attn_tail"] == 18 and not any(r["launches"]["fp32"].values())
+
+
+# -- the int8 route (NOISEDIFF_INT8=1): csrc/int8_conv.cu ----------------------
+
+def _int8_conv_module():
+    import importlib
+
+    return importlib.import_module("noisediff_tpu_torch.ops.kernels.int8_conv")
+
+
+def _int8_operands(dev, b, h, w, ci, co, k, dtype, seed=0, misaligned=False):
+    """x (B, H, W, Ci) in dtype (a view 2 bytes into its buffer when
+    misaligned: the kernel's element-wise load path), the quantized weight."""
+    q = _int8_conv_module()
+    x = _randn(dev, b, h, w, ci, scale=2.0, seed=seed).to(dtype)
+    if misaligned:
+        buf = torch.empty(x.numel() + 1, device=dev, dtype=dtype)
+        buf[1:].copy_(x.flatten())
+        x = buf[1:].view(x.shape)
+    kq, sw = q.quantize_weight(_randn(dev, co, ci, k, k, scale=(ci * k * k) ** -0.5, seed=seed + 1))
+    return x, kq, sw
+
+
+# ragged depth steps (Ci 24, 48; Ci 20: not a multiple of 8), ragged and
+# narrow Co (12 and 20: not a multiple of 8), padding (0, 1) (a split
+# frame's rows with their halos), H and W of 1, odd sizes, 1x1
+INT8_EDGES = [(2, 9, 11, 24, 16, 3, (1, 1)), (1, 7, 5, 48, 40, 3, (1, 1)),
+              (1, 9, 13, 48, 72, 3, (0, 1)), (3, 1, 1, 48, 24, 3, (1, 1)),
+              (2, 1, 7, 32, 16, 3, (1, 1)), (2, 5, 1, 16, 8, 3, (1, 1)),
+              (1, 6, 7, 20, 20, 3, (1, 1)), (2, 9, 9, 96, 200, 1, (0, 0)),
+              (2, 5, 9, 24, 12, 1, (0, 0)), (1, 130, 67, 64, 48, 3, (1, 1))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,ci,co,k,pad", INT8_EDGES)
+def test_int8_conv_kernel_edges(dev, dtype, b, h, w, ci, co, k, pad):
+    """The kernel's output bit-equal to the plain version's (the integer
+    sums are exact on both; every other step is the same IEEE operation),
+    absmax equal to max |x|, one launch each."""
+    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv, reference_absmax
+    from noisediff_tpu_torch.ops.kernels import reference_int8_conv
+
+    for misaligned in (False, True):
+        x, kq, sw = _int8_operands(dev, b, h, w, ci, co, k, dtype, misaligned=misaligned)
+        before = (int8_conv.launches, absmax.launches)
+        amax = absmax(x)
+        got = int8_conv(x, kq, sw, amax, pad)
+        assert (int8_conv.launches, absmax.launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(amax, reference_absmax(x))
+        want = reference_int8_conv(x, kq, sw, amax, pad)
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_two_parts_then_bias(dev, dtype):
+    """A skip join's two parts, each with its own scales: the second
+    launch adds its output to the first's in place, then the bias."""
+    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv, reference_int8_conv
+
+    xa, kqa, swa = _int8_operands(dev, 2, 17, 12, 48, 48, 3, dtype, seed=3)
+    xb, kqb, swb = _int8_operands(dev, 2, 17, 12, 24, 48, 3, dtype, seed=5)
+    bias = 0.1 * _randn(dev, 48, seed=7)
+    y = int8_conv(xa, kqa, swa, absmax(xa), (1, 1))
+    got = int8_conv(xb, kqb, swb, absmax(xb), (1, 1), bias, y)
+    assert got.data_ptr() == y.data_ptr()
+    want = reference_int8_conv(xa, kqa, swa, absmax(xa), (1, 1))
+    want = reference_int8_conv(xb, kqb, swb, absmax(xb), (1, 1), bias, want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 4099, 3 * 2 ** 20 + 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_absmax_kernel(dev, n, dtype):
+    from noisediff_tpu_torch.ops.kernels import absmax, reference_absmax
+
+    x = _randn(dev, n, seed=n).to(dtype)
+    x[n // 2] = -7.5  # the maximum is a negative value
+    for t in (x, x[1:]):  # 16-byte aligned and not
+        if t.numel():
+            assert torch.equal(absmax(t), reference_absmax(t))
+            assert torch.equal(absmax(t), absmax(t))  # the arrival counter resets itself
+
+
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take(dev, monkeypatch):
+    """A 7x7 conv reaches the wrapper and is refused; a stride-2 conv is
+    refused before it (the route takes stride-1 SAME convs)."""
+    from noisediff_tpu_torch.models import blocks
+    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv
+
+    monkeypatch.setenv("NOISEDIFF_INT8", "1")
+    x = _randn(dev, 1, 16, 8, 8).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="kh = kw"):
+            blocks.Conv2d(16, 16, 7).to(dev).eval()(x)
+        with pytest.raises(NotImplementedError, match="stride-1"):
+            blocks.Conv2d(16, 16, 3, stride=2).to(dev).eval()(x)
+    xh = x.permute(0, 2, 3, 1)
+    kq, sw = _int8_conv_module().quantize_weight(_randn(dev, 16, 16, 3, 3))
+    with pytest.raises(ValueError, match="Ci >= 16"):
+        int8_conv(xh[..., :8].contiguous(), kq[..., :8].contiguous(), sw, absmax(xh), (1, 1))
+    with pytest.raises(TypeError):
+        int8_conv(xh.half().contiguous(), kq, sw, absmax(xh), (1, 1))
+
+
+def test_int8_model_on_card_matches_plain_route(dev, monkeypatch):
+    """NoiseDiffNet dim 48 (bf16) and LSID (fp32) with NOISEDIFF_INT8=1 on
+    the card: 77 / 21 int8_conv and absmax launches a forward, and the
+    output within a bf16 rounding of the same model with every int8 conv
+    on its plain version on the card."""
+    from noisediff_tpu_torch.models import LSID, NoiseDiffNet, blocks
+    from noisediff_tpu_torch.ops.kernels import launch_counts, reference_int8_conv
+    from noisediff_tpu_torch.ops.kernels import reset_launch_counts
+
+    monkeypatch.setenv("NOISEDIFF_INT8", "1")
+    torch.manual_seed(0)
+    net = NoiseDiffNet(dim=48, dtype=torch.bfloat16).to(dev).eval()
+    lsid = LSID().to(dev).eval()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 64, 4)).astype(np.float32)).to(dev)
+    cond = {"clean_img": x.abs() * 0.1, "position": x[..., :2].abs(),
+            "iso_ratio_idx": torch.tensor([24, 3], device=dev)}
+    t = torch.tensor([500, 3], device=dev)
+    outs = {}
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(blocks, "int8_conv", reference_int8_conv)
+        reset_launch_counts()
+        with torch.no_grad():
+            outs[plain] = (net(x, t, cond).float(), lsid(x.abs() * 0.05))
+        torch.cuda.synchronize()
+        c = launch_counts()
+        assert (c["int8_conv"], c["absmax"]) == ((0, 77 + 21) if plain else (98, 98)), c
+    for got, want, tol in zip(outs[False], outs[True], (5e-2, 1e-5)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).norm() / want.norm()) <= tol
