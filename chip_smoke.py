@@ -33,8 +33,11 @@ Every phase runs, in this order (any failure exits non-zero):
            one dim-48 evaluation (B 4, 512^2, bf16: 77 convs) and of LSID's
            evaluation of one packed full frame (fp32: 21), both dtypes at
            each, and at INT8_RAGGED: bit-equal to the plain version, absmax
-           equal to max |x|; each shape timed in its path's dtype beside its
-           bound, cuDNN's bf16 conv and (1x1) torch._int_mm. After fp32
+           equal to max |x|, every main-path shape on the tiled kernel (its
+           launch counter; the small kernel's for what the route rule sends
+           there); each shape timed in its path's dtype, the tiled and the
+           small kernel in turns, beside its bound, cuDNN's bf16 conv and
+           (1x1) torch._int_mm. After fp32
            generation the main phase's DPM-10 run again under the variable
            (77 + 77 launches an evaluation, patches/s, the patches' distance
            from the bf16 run's); after evaluate its first frame under the
@@ -208,7 +211,11 @@ The closed-loop learning gate (scripts/port_learning_gate.py):
            and ddim_head each launched (launches_sweep in the kernels
            line), the two DDIM KLDs within SWEEP_DDIM_RTOL
 The last lines are the kernels JSON line, the card's name and power limit,
-and {"ok": true, "device": {...}}.
+and {"ok": true, "device": {...}}. On the way out, whether a phase passed
+or failed, the script stops and reaps every process it started that still
+runs (`stop_children`; it is the subreaper of its descendants), among them
+the resource tracker of the generation CLI's spawned DataLoader workers,
+which would otherwise end only after the script had.
 """
 from __future__ import annotations
 
@@ -2780,6 +2787,92 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def become_subreaper() -> None:
+    """Make this process the parent of any process its children leave
+    behind (Linux PR_SET_CHILD_SUBREAPER), so that `stop_children` also
+    finds a grandchild whose parent ended first, such as a DataLoader
+    worker of a rank that was killed."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def child_pids() -> list:
+    """The pids whose parent is this process, read from /proc."""
+    me, pids = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == me:
+            pids.append(int(name))
+    return pids
+
+
+def stop_children(grace: float = 10.0) -> list:
+    """Stop every process this script started that still runs, and reap
+    it: multiprocessing's children (the spawned DataLoader workers of the
+    generation CLI), the resource tracker that their spawn context started
+    (it ignores SIGTERM and ends only once its pipe closes, which would
+    otherwise be after this process has exited), then any other child,
+    SIGTERM and after `grace` seconds SIGKILL. Returns what it had to stop,
+    also printed to stderr."""
+    import gc
+    import multiprocessing
+    import signal
+    from multiprocessing import resource_tracker
+
+    gc.collect()  # a DataLoader iterator nothing holds frees its queues' semaphores
+    stopped = []
+    procs = multiprocessing.active_children()
+    for p in procs:
+        stopped.append(f"multiprocessing child {p.pid} ({p.name})")
+        p.terminate()
+    for p in procs:
+        p.join(grace)
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None:
+        stopped.append(f"resource tracker {tracker._pid}")
+        tracker._stop()  # closes its pipe and waits for it to end
+    pids = child_pids()
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            cmd = ""
+        if cmd:  # a zombie has an empty command line: it only needs reaping
+            stopped.append(f"process {pid} ({cmd[:120]})")
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGTERM)
+    deadline = time.time() + grace
+    while pids:
+        for pid in list(pids):
+            try:
+                done, _ = os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                done = pid
+            if done:
+                pids.remove(pid)
+        if pids and time.time() > deadline:
+            for pid in pids:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
+            deadline = float("inf")
+        if pids:
+            time.sleep(0.05)
+    if stopped:
+        print(f"chip_smoke: stopped on the way out: {stopped}", file=sys.stderr, flush=True)
+    return stopped
+
+
 def spawn_ranks(job: dict, world: int, workdir: str, launcher_env: bool = True):
     """Run `job` (rank_main) as `world` processes with torchrun's environment
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT on a free local
@@ -4368,43 +4461,61 @@ def int8_operands(randn, key, dtype):
     return x, kq, sw, amax, pad, bias, into
 
 
-def int8_check(randn, key, dtype):
+def int8_check(randn, key, dtype, want_route=None):
     """The kernel against its plain version at one call shape: bit-equal
     (the integer sums are exact on both sides and every other step is the
-    same IEEE operation); returns the operands."""
+    same IEEE operation), launched on the route `int8_conv.route` names
+    (on the card its counter moves by one, the other's not; on the CPU the
+    plain version runs and neither moves; `want_route` where the caller
+    knows it); returns the operands and the route."""
     import torch
 
-    from noisediff_tpu_torch.ops.kernels import int8_conv, reference_int8_conv
+    from noisediff_tpu_torch.ops.kernels import int8_conv, int8_conv_small, reference_int8_conv
+    from noisediff_tpu_torch.ops.kernels.int8_conv import route
 
     ops = int8_operands(randn, key, dtype)
     x, kq, sw, amax, pad, bias, into = ops
+    r = route(x, kq, into)
+    before = (int8_conv.launches, int8_conv_small.launches)
     got = int8_conv(x, kq, sw, amax, pad, bias, None if into is None else into.clone())
+    moved = (int8_conv.launches - before[0], int8_conv_small.launches - before[1])
+    expect = ((1, 0) if r == "tiled" else (0, 1)) if x.is_cuda else (0, 0)
+    if moved != expect or want_route not in (None, r):
+        raise AssertionError(f"int8_conv {key} {dtype}: route {r} (wanted {want_route}), "
+                             f"counters moved {moved}")
     want = reference_int8_conv(x, kq, sw, amax, pad, bias, into)
     if got.shape != want.shape or not torch.equal(got, want):
         err = float((got.float() - want.float()).abs().max()) if got.shape == want.shape else -1
-        raise AssertionError(f"int8_conv {key} {dtype}: not bit-equal to the plain version, "
-                             f"max abs err {err}")
-    return ops
+        raise AssertionError(f"int8_conv {key} {dtype}: not bit-equal to the plain version "
+                             f"({r} kernel), max abs err {err}")
+    return ops, r
 
 
 def int8_rows(randn, key, dtype, calls: dict):
-    """Check and time one call shape: the kernel (per call and on the
-    card's clock), its plain version, the bound, cuDNN's bf16 conv of the
-    same shape (the yardstick) and, at a 1x1, torch._int_mm of the same
-    integer product (library_ms; no PyTorch call computes the quantized
-    conv itself); absmax beside torch.linalg.vector_norm(x, inf). Returns
-    (int8_conv row, absmax row)."""
+    """Check one main-path call shape (on the tiled route) and time it: the
+    tiled kernel (per call and on the card's clock) and the small kernel
+    (the first design, on the card's clock) in turns on the same inputs
+    (tiled, small, small, tiled), the plain version, the bound, cuDNN's
+    bf16 conv of the same shape (the yardstick) and, at a 1x1,
+    torch._int_mm of the same integer product (library_ms; no PyTorch call
+    computes the quantized conv itself); absmax beside
+    torch.linalg.vector_norm(x, inf). Returns (int8_conv row, absmax row)."""
     import torch
     import torch.nn.functional as F
 
-    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv, reference_absmax
-    from noisediff_tpu_torch.ops.kernels import reference_int8_conv
+    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv, int8_conv_small
+    from noisediff_tpu_torch.ops.kernels import reference_absmax, reference_int8_conv
 
-    x, kq, sw, amax, pad, bias, into = int8_check(randn, key, dtype)
+    (x, kq, sw, amax, pad, bias, into), r = int8_check(randn, key, dtype, want_route="tiled")
     (b, h, w, ci), (co, k, _, _) = key[:2]
     dst = None if into is None else into.clone()
     fn = lambda: int8_conv(x, kq, sw, amax, pad, bias, dst)  # noqa: E731
-    ms, dev_ms = time_ms(fn, reps=10), time_device_ms(fn, n=10, reps=2)
+    small = lambda: int8_conv_small(x, kq, sw, amax, pad, bias, dst)  # noqa: E731
+    turns = {"tiled": [], "small": []}
+    for name, f in (("tiled", fn), ("small", small), ("small", small), ("tiled", fn)):
+        turns[name].append(time_device_ms(f, n=10, reps=2))
+    dev_ms, small_ms = (statistics.mean(turns[n]) for n in ("tiled", "small"))
+    ms = time_ms(fn, reps=10)
     plain = time_ms(lambda: reference_int8_conv(x, kq, sw, amax, pad, bias, into), reps=3,
                     warmup=1)
     out = fn()
@@ -4425,8 +4536,9 @@ def int8_rows(randn, key, dtype, calls: dict):
             log(f"    torch._int_mm refused ({b * h * w}, {ci}) x ({ci}, {co}): {exc}")
     tag = dict(shape=[b, h, w, ci], dtype=str(dtype).replace("torch.", ""), **calls)
     conv = dict(tag, kernel=[co, k, k, ci], padding=list(pad), into=into is not None,
-                bias=bias is not None, ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library, cudnn_bf16_ms=cudnn, max_abs_err=0.0)
+                bias=bias is not None, route=r, ms=ms, device_ms=dev_ms, small_device_ms=small_ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library,
+                cudnn_bf16_ms=cudnn, max_abs_err=0.0)
     a_dev = time_device_ms(lambda: absmax(x), n=10, reps=2)
     a_ms = time_ms(lambda: absmax(x), reps=5)
     a_plain = time_ms(lambda: reference_absmax(x), reps=3, warmup=1)
@@ -4435,9 +4547,9 @@ def int8_rows(randn, key, dtype, calls: dict):
     amax_row = dict(tag, ms=a_ms, device_ms=a_dev, plain_ms=a_plain, bound_ms=a_bound,
                     bound_by="bytes", library_ms=a_lib, max_abs_err=0.0)
     log(f"    {key[0]} x {co}x{k}x{k} pad {tuple(pad)}{' +into' if into is not None else ''}"
-        f"{' +bias' if bias is not None else ''} {conv['dtype']} {calls}: dev {dev_ms:.4f} ms "
-        f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; per call {ms:.4f}; plain "
-        f"{plain:.3f}; cuDNN bf16 {cudnn:.4f}"
+        f"{' +bias' if bias is not None else ''} {conv['dtype']} {calls}: {r} dev {dev_ms:.4f} ms "
+        f"({dev_ms / b_ms:.2f}x the bound {b_ms:.4f} {b_by}; small kernel {small_ms:.4f}, "
+        f"{small_ms / b_ms:.2f}x; per call {ms:.4f}; plain {plain:.3f}; cuDNN bf16 {cudnn:.4f}"
         f"{'' if library is None else f'; _int_mm {library:.4f}'}); absmax dev {a_dev:.4f} "
         f"({a_dev / a_bound:.2f}x {a_bound:.4f}; vector_norm {a_lib:.4f})")
     return conv, amax_row
@@ -4486,26 +4598,29 @@ def phase_int8_kernels(seed: int):
             c, a = int8_rows(randn, key, timed, calls)
             conv_rows.append(c)
             amax_rows.append(a)
-            int8_check(randn, key, other)
+            int8_check(randn, key, other, want_route="tiled")
             torch.cuda.empty_cache()
+    ragged = {}
     for b, h, w, ci, co, k, pad in INT8_RAGGED:
         for dtype in (torch.float32, torch.bfloat16):
             for into, bias in ((False, False), (True, True)):
-                int8_check(randn, ((b, h, w, ci), (co, k, k, ci + (-ci % 32)), pad, into, bias),
-                           dtype)
-    log(f"  every shape bit-equal to the plain version in fp32 and bf16 (and "
-        f"{len(INT8_RAGGED)} ragged shapes with and without the previous part and the bias); "
-        f"{time.time() - t0:.1f} s")
-    tot = {k: sum(r[k] * r["calls"] for r in conv_rows) for k in ("device_ms", "bound_ms",
-                                                                 "cudnn_bf16_ms")}
+                _, r = int8_check(randn, ((b, h, w, ci), (co, k, k, ci + (-ci % 32)), pad, into,
+                                          bias), dtype)
+                ragged[r] = ragged.get(r, 0) + 1
+    log(f"  every shape bit-equal to the plain version in fp32 and bf16 on the tiled kernel "
+        f"(and {len(INT8_RAGGED)} ragged shapes with and without the previous part and the "
+        f"bias, by route {ragged}); {time.time() - t0:.1f} s")
+    tot = {k: sum(r[k] * r["calls"] for r in conv_rows)
+           for k in ("device_ms", "small_device_ms", "bound_ms", "cudnn_bf16_ms")}
     a_tot = {k: sum(r[k] * r["calls"] for r in amax_rows) for k in ("device_ms", "bound_ms")}
-    lsid_tot = {k: sum(r[k] * r["lsid_calls"] for r in conv_rows) for k in ("device_ms",
-                                                                          "bound_ms")}
+    lsid_tot = {k: sum(r[k] * r["lsid_calls"] for r in conv_rows)
+                for k in ("device_ms", "small_device_ms", "bound_ms", "cudnn_bf16_ms")}
     log(f"  an evaluation's int8 convs: {tot['device_ms']:.4f} ms on the card's clock "
-        f"(bound {tot['bound_ms']:.4f}; cuDNN's bf16 convs of the same shapes "
-        f"{tot['cudnn_bf16_ms']:.4f}); its absmax calls {a_tot['device_ms']:.4f} (bound "
-        f"{a_tot['bound_ms']:.4f}); LSID's evaluation: int8 convs {lsid_tot['device_ms']:.4f} "
-        f"ms (bound {lsid_tot['bound_ms']:.4f})")
+        f"(small kernel {tot['small_device_ms']:.4f}; bound {tot['bound_ms']:.4f}; cuDNN's "
+        f"bf16 convs of the same shapes {tot['cudnn_bf16_ms']:.4f}); its absmax calls "
+        f"{a_tot['device_ms']:.4f} (bound {a_tot['bound_ms']:.4f}); LSID's evaluation: int8 "
+        f"convs {lsid_tot['device_ms']:.4f} ms (small kernel {lsid_tot['small_device_ms']:.4f}; "
+        f"bound {lsid_tot['bound_ms']:.4f}; cuDNN bf16 {lsid_tot['cudnn_bf16_ms']:.4f})")
     return {"int8_conv": conv_rows, "absmax": amax_rows, "per_eval": n_gen, "lsid": n_lsid}
 
 
@@ -4520,7 +4635,8 @@ def phase_int8_generation(seed: int, workdir: str, ckpt: str, main: dict, per_ev
     argv = gen_argv(workdir, ckpt, seed, "int8", ["--sampler", "dpm", "--dpm_spacing", "lambda"])
     per_batch = {"fused_attn_tail": 9 * DPM_STEPS, "fused_groupnorm_film_silu": 42 * DPM_STEPS,
                  "fused_dual_head": DPM_STEPS, "int8_conv": per_eval * DPM_STEPS,
-                 "absmax": per_eval * DPM_STEPS, "fused_ddim_head_update": 0, "conv_wgrad": 0}
+                 "int8_conv_small": 0, "absmax": per_eval * DPM_STEPS,
+                 "fused_ddim_head_update": 0, "conv_wgrad": 0}
     with int8_route():
         out = run_generation(argv, per_batch, "int8 generation")
     main_dir = os.path.join(workdir, "out", "ISO800_Ratio250", "npy", "generated")
@@ -4561,7 +4677,7 @@ def phase_int8_evaluate(evaluation: dict):
         f"int8_conv, {counts['absmax']} absmax launches; forward {f['forward_s'] * 1e3:.4f} ms, "
         f"frame {f['frame_s']:.4f} s (the fp32 route's first frame: forward "
         f"{f32['forward_s'] * 1e3:.4f} ms, frame {f32['frame_s']:.4f} s)")
-    if counts["int8_conv"] != 21 or counts["absmax"] != 21 or \
+    if counts["int8_conv"] != 21 or counts["int8_conv_small"] or counts["absmax"] != 21 or \
             not np.isfinite([f["PSNR"], f["SSIM"]]).all() or rel > 0.5:
         raise AssertionError(f"int8 evaluate: {counts}, PSNR {f['PSNR']}, rel L2 {rel}")
     return dict(psnr=f["PSNR"], ssim=f["SSIM"], fp32_psnr=f32["PSNR"], fp32_ssim=f32["SSIM"],
@@ -4571,7 +4687,7 @@ def phase_int8_evaluate(evaluation: dict):
 KERNEL_WRAPPERS = ("fused_attn_tail", "fused_attn_tail_bwd", "fused_groupnorm_film_silu",
                    "fused_dual_head", "fused_ddim_head_update", "gn_stats", "gn_grad_stats",
                    "conv_wgrad", "flash_attention", "groupnorm_silu_apply", "int8_conv",
-                   "absmax")
+                   "int8_conv_small", "absmax")
 
 KERNEL_META = {  # name: (wrapper, source, TPU kernel it replaces, what `ms` is summed over)
     "attn_tail": ("fused_attn_tail", "noisediff_tpu_torch/csrc/attn_tail.cu",
@@ -4628,7 +4744,7 @@ def kernels_line(results, launches):
         # the card's clock (time_device_ms) and the wrapper's host time
         # (host_ms_per_call), where the kernel's counted rows have them
         device = {k: sum(r[k] * r["calls"] for r in counted)
-                  for k in ("device_ms", "library_device_ms", "host_ms")
+                  for k in ("device_ms", "library_device_ms", "host_ms", "small_device_ms")
                   if counted and all(k in r for r in counted)}
         # one full-frame evaluation (B 1, 1424 x 2128), where the kernel has such rows
         ff = [r for r in rows if r.get("fullframe_calls")]
@@ -4644,7 +4760,8 @@ def kernels_line(results, launches):
         ls = [r for r in rows if r.get("lsid_calls")]
         if ls:
             device.update({f"lsid_{k}": sum(r[k] * r["lsid_calls"] for r in ls)
-                           for k in ("device_ms", "plain_ms", "bound_ms")})
+                           for k in ("device_ms", "plain_ms", "bound_ms", "small_device_ms")
+                           if all(k in r for r in ls)})
         # the bound of the shapes that carry most of the bound time
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "bytes")
         n, split = launches[name]
@@ -4874,6 +4991,9 @@ def main(argv=None) -> int:
         launches[name] = (n + n_eval, {
             "launches_generation": n, "launches_per_eval": n / (N_BATCHES * DPM_STEPS),
             "launches_evaluate": n_eval})
+    # the small kernel on both int8 paths (each shape there takes the tiled one)
+    launches["int8_conv"][1]["launches_small"] = (int8_gen["counts"]["int8_conv_small"]
+                                                  + int8_eval["counts"]["int8_conv_small"])
     print(json.dumps(kernels_line(results, launches)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4882,4 +5002,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    become_subreaper()
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

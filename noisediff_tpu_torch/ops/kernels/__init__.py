@@ -13,12 +13,12 @@ from .gn_stats import gn_grad_stats, gn_stats, reference_gn_grad_stats, referenc
 from .groupnorm_silu import (
     fused_groupnorm_film_silu, groupnorm_silu_apply, reference_groupnorm_film_silu,
     reference_groupnorm_silu_apply)
-from .int8_conv import absmax, int8_conv, reference_absmax, reference_int8_conv
+from .int8_conv import absmax, int8_conv, int8_conv_small, reference_absmax, reference_int8_conv
 
 # every kernel wrapper of the port (each carries `.launches`)
 KERNELS = (fused_attn_tail, fused_attn_tail_bwd, fused_groupnorm_film_silu, fused_dual_head,
            fused_ddim_head_update, gn_stats, gn_grad_stats, conv_wgrad, flash_attention,
-           groupnorm_silu_apply, int8_conv, absmax)
+           groupnorm_silu_apply, int8_conv, int8_conv_small, absmax)
 
 
 def reset_launch_counts() -> None:
@@ -46,6 +46,7 @@ __all__ = [
     "gn_stats",
     "groupnorm_silu_apply",
     "int8_conv",
+    "int8_conv_small",
     "launch_counts",
     "reference_absmax",
     "reference_attn_tail",

@@ -1005,12 +1005,13 @@ def test_kernels_launch_on_the_tensors_card(dev):
     for the launch, and restore the current device): each output lies on
     cuda:1 and agrees with the plain version there (relative L2 within
     2e-2); attn_tail's forward on its fused (48), streamed (192) and tiled
-    (384) routes, its backward on the fused (48) and tiled (96) ones."""
+    (384) routes, its backward on the fused (48) and tiled (96) ones; the
+    int8 conv on its tiled and its small kernel."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     from noisediff_tpu_torch.ops.kernels import (
-        absmax, int8_conv, launch_counts, reference_absmax, reference_int8_conv,
-        reset_launch_counts)
+        absmax, groupnorm_silu_apply, int8_conv, launch_counts, reference_absmax,
+        reference_groupnorm_silu_apply, reference_int8_conv, reset_launch_counts)
 
     one, bf = torch.device("cuda", 1), torch.bfloat16
     torch.cuda.set_device(0)
@@ -1031,6 +1032,9 @@ def test_kernels_launch_on_the_tensors_card(dev):
               0.3 * _randn(one, 48, seed=2))
         checks.append(("groupnorm_silu", fused_groupnorm_film_silu(*gn),
                        reference_groupnorm_film_silu(*gn)))
+        a, bb = 1 + 0.2 * _randn(one, 2, 48, seed=1), 0.3 * _randn(one, 2, 48, seed=2)
+        checks.append(("groupnorm_silu_apply", groupnorm_silu_apply(x, a, bb),
+                       reference_groupnorm_silu_apply(x, a, bb)))
         h, sa, sb = (_randn(one, 2, 8, 8, 48, dtype=bf, seed=s) for s in range(3))
         hp = (_randn(one, 48, 48, scale=48 ** -0.5), 0.1 * _randn(one, 48),
               _randn(one, 4, 48, scale=48 ** -0.5, seed=1), 0.1 * _randn(one, 4),
@@ -1054,6 +1058,10 @@ def test_kernels_launch_on_the_tensors_card(dev):
         checks.append(("absmax", amax, reference_absmax(xi)))
         checks.append(("int8_conv", int8_conv(xi, kq, sw, amax, (1, 1)),
                        reference_int8_conv(xi, kq, sw, amax, (1, 1))))
+        # a row of Ci 20 in bf16 is 40 bytes: the small kernel's shape
+        xs, kqs, sws = _int8_operands(one, 2, 9, 11, 20, 40, 3, bf)
+        checks.append(("int8_conv_small", int8_conv(xs, kqs, sws, absmax(xs), (1, 1)),
+                       reference_int8_conv(xs, kqs, sws, absmax(xs), (1, 1))))
         torch.cuda.synchronize(one)
         assert torch.cuda.current_device() == 0
     finally:
@@ -1061,7 +1069,7 @@ def test_kernels_launch_on_the_tensors_card(dev):
     for name, got, want in checks:
         assert got.device == one, name
         assert bool(torch.isfinite(got.float()).all()) and _rel(got, want) < 2e-2, name
-    assert all(launch_counts().values()), launch_counts()
+    assert all(launch_counts().values()), {k: n for k, n in launch_counts().items() if not n}
 
 
 DIST_RANK = r'''
@@ -1274,15 +1282,21 @@ def test_int8_conv_kernel_edges(dev, dtype, b, h, w, ci, co, k, pad):
     """The kernel's output bit-equal to the plain version's (the integer
     sums are exact on both; every other step is the same IEEE operation),
     absmax equal to max |x|, one launch each."""
-    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv, reference_absmax
-    from noisediff_tpu_torch.ops.kernels import reference_int8_conv
+    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv, int8_conv_small
+    from noisediff_tpu_torch.ops.kernels import reference_absmax, reference_int8_conv
 
+    route = _int8_conv_module().route
     for misaligned in (False, True):
         x, kq, sw = _int8_operands(dev, b, h, w, ci, co, k, dtype, misaligned=misaligned)
-        before = (int8_conv.launches, absmax.launches)
+        r = route(x, kq)
+        assert r == ("tiled" if _int8_conv_module().takes_tiled(
+            ci, co, x.element_size(), not misaligned) else "small")
+        before = (int8_conv.launches, int8_conv_small.launches, absmax.launches)
         amax = absmax(x)
         got = int8_conv(x, kq, sw, amax, pad)
-        assert (int8_conv.launches, absmax.launches) == (before[0] + 1, before[1] + 1)
+        tiled = r == "tiled"
+        assert (int8_conv.launches, int8_conv_small.launches, absmax.launches) == (
+            before[0] + tiled, before[1] + (not tiled), before[2] + 1)
         assert torch.equal(amax, reference_absmax(x))
         want = reference_int8_conv(x, kq, sw, amax, pad)
         assert got.shape == want.shape and got.dtype == dtype
@@ -1304,6 +1318,66 @@ def test_int8_conv_two_parts_then_bias(dev, dtype):
     want = reference_int8_conv(xa, kqa, swa, absmax(xa), (1, 1))
     want = reference_int8_conv(xb, kqb, swb, absmax(xb), (1, 1), bias, want)
     assert torch.equal(got, want)
+
+
+# (Ci, Co, k) of every int8 call of NoiseDiffNet dim 48 (bf16) and of
+# LSID's full frame (fp32) (tests/test_torch_port_int8_plan.py lists the
+# calls), each at a frame of several ragged tiles
+INT8_MAIN_CLASSES = [(192, 192, 3), (192, 384, 1), (192, 384, 3), (384, 384, 1), (384, 384, 3),
+                     (96, 96, 3), (96, 192, 1), (96, 192, 3), (192, 192, 1), (48, 48, 3),
+                     (48, 96, 1), (48, 96, 3), (96, 96, 1), (24, 16, 1), (48, 48, 1),
+                     (256, 512, 3), (512, 512, 3), (128, 256, 3), (256, 256, 3), (64, 128, 3),
+                     (128, 128, 3), (32, 64, 3), (64, 64, 3), (32, 32, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co,k", INT8_MAIN_CLASSES)
+def test_int8_conv_tiled_route(dev, dtype, ci, co, k):
+    """Every main-path call shape class on the tiled kernel (its counter
+    moves, the small kernel's not), bit-equal to the plain version, with
+    and without the previous part and the bias, at a 19 x 37 frame (3 x 2
+    or 3 x 3 ragged tiles of 8 rows) and, for the 3x3, at a split frame's
+    padding (0, 1)."""
+    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv, int8_conv_small
+    from noisediff_tpu_torch.ops.kernels import reference_int8_conv
+
+    q = _int8_conv_module()
+    x, kq, sw = _int8_operands(dev, 2, 19, 37, ci, co, k, dtype, seed=ci + co)
+    amax = absmax(x)
+    for pad in ([(1, 1), (0, 1)] if k == 3 else [(0, 0)]):
+        ho, wo = q.out_size(x.shape, kq.shape, pad)
+        for into, bias in ((None, None), (_randn(dev, 2, ho, wo, co, seed=3).to(dtype),
+                                          0.1 * _randn(dev, co, seed=4))):
+            assert q.route(x, kq, into) == "tiled"
+            before = (int8_conv.launches, int8_conv_small.launches)
+            got = int8_conv(x, kq, sw, amax, pad, bias, None if into is None else into.clone())
+            assert (int8_conv.launches, int8_conv_small.launches) == (before[0] + 1, before[1])
+            want = reference_int8_conv(x, kq, sw, amax, pad, bias, into)
+            assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co,k", [(48, 48, 3), (384, 384, 3), (24, 16, 1)])
+def test_int8_conv_both_kernels_agree(dev, dtype, ci, co, k):
+    """The tiled kernel (through `int8_conv`) and the small kernel (through
+    `int8_conv_small`) at one shape, bit-equal to each other and counted on
+    their own counters; a misaligned x goes from `int8_conv` to the small
+    kernel, equal to the aligned x's output (the same values)."""
+    from noisediff_tpu_torch.ops.kernels import absmax, int8_conv, int8_conv_small
+
+    x, kq, sw = _int8_operands(dev, 1, 33, 70, ci, co, k, dtype, seed=11)
+    amax = absmax(x)
+    pad = ((k - 1) // 2,) * 2
+    before = (int8_conv.launches, int8_conv_small.launches)
+    a = int8_conv(x, kq, sw, amax, pad)
+    b = int8_conv_small(x, kq, sw, amax, pad)
+    assert (int8_conv.launches, int8_conv_small.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(a, b)
+    off, _, _ = _int8_operands(dev, 1, 33, 70, ci, co, k, dtype, seed=11, misaligned=True)
+    assert _int8_conv_module().route(off, kq) == "small"
+    c = int8_conv(off, kq, sw, absmax(off), pad)
+    assert (int8_conv.launches, int8_conv_small.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(c, a)
 
 
 @pytest.mark.parametrize("n", [1, 7, 8, 4099, 3 * 2 ** 20 + 5])
@@ -1367,7 +1441,8 @@ def test_int8_model_on_card_matches_plain_route(dev, monkeypatch):
             outs[plain] = (net(x, t, cond).float(), lsid(x.abs() * 0.05))
         torch.cuda.synchronize()
         c = launch_counts()
-        assert (c["int8_conv"], c["absmax"]) == ((0, 77 + 21) if plain else (98, 98)), c
+        assert (c["int8_conv"], c["int8_conv_small"], c["absmax"]) == (
+            (0, 0, 77 + 21) if plain else (98, 0, 98)), c
     for got, want, tol in zip(outs[False], outs[True], (5e-2, 1e-5)):
         assert bool(torch.isfinite(got).all())
         assert float((got - want).norm() / want.norm()) <= tol
