@@ -83,7 +83,7 @@ Every phase runs, in this order (any failure exits non-zero):
            miniature tree: steps/s beside the default run's and the
            conv_wgrad launches per step
   fp32     --no_mixed_precision (fp32 compute, the plain route of every
-           block) through both CLIs: 1 DPM-10 batch after ddim, 2 training
+           block) through both CLIs: 1 DPM-2 batch after ddim, 2 training
            steps (crop 128, batch 50) after train_wgrad on the default wgrad
            route and 2 under NOISEDIFF_WGRAD=pallas; no kernel launches,
            finite outputs and losses
@@ -112,7 +112,8 @@ Every phase runs, in this order (any failure exits non-zero):
   fullframe  diffusion/fullframe.generate_full_frame over the whole packed
            frame (B 1, 1424 x 2128 x 4) from gen_setup's dim-48 weights, bf16
            through the kernels, DPM-10: shape, finite values, 9 / 42 / 1
-           launches of attn_tail / groupnorm_silu / dual_head an evaluation;
+           launches of attn_tail / groupnorm_silu / dual_head an evaluation,
+           the device time an evaluation from a profiled DPM-2 sample;
            DPM-2 through the kernels against the fp32 plain route on the card
            beside the bf16 plain route
   fullframe_sharded  (after fullframe) the same frame split by rows over 2
@@ -122,7 +123,8 @@ Every phase runs, in this order (any failure exits non-zero):
            evaluation beside fullframe's, each rank's peak memory and
            launches (9 attn_tail, 44 gn_stats, 42 groupnorm_silu_apply, 1
            dual_head an evaluation, no groupnorm_silu), the halo exchanges'
-           and all-reduces' count and time from a profile of one evaluation;
+           and all-reduces' count and time an evaluation from a profiled
+           DPM-2 sample;
            DPM-2 and DDIM-2 (ddim_head) in bf16 against one card from the
            same x_T, and fp32 DPM-2 at 256 x 384 within 1e-4 rel L2 of one
            card. The kernels phase checks gn_stats and the groupnorm_silu
@@ -152,21 +154,27 @@ Every phase runs, in this order (any failure exits non-zero):
            384, 64^2 against the CPU; interpolate at t = 10. Its launches
            are added to the kernels line (launches_posemb)
 Multi-process data parallelism, --remat and --profile (ranks are processes
-this script starts with torchrun's environment, `spawn_ranks`):
+with torchrun's environment, `spawn_ranks`, forked from a server that
+imported torch and the port once, `rank_context`; the independent runs of
+one phase start together, `spawn_jobs`, so their start-up overlaps and
+their rates are read under each other's load):
   dist_cli denoise  (after denoise) the denoising CLI at script.sh:24's
-           config as spawned processes: --launcher none, and --launcher
-           pytorch at world size 1 over NCCL (and 2 with 2 cards): losses
-           bit-equal to --launcher none's, only rank 0 writes its run
-           directory, log and snapshots, which load strictly; steps/s
+           config as spawned processes, all at once: --launcher none, and
+           --launcher pytorch at world size 1 over NCCL (and 2 with 2
+           cards): losses bit-equal to --launcher none's, only rank 0 writes
+           its run directory, log and snapshots, which load strictly; steps/s
   dist_gen (after it) the generation CLI with --launcher pytorch on 2
            ranks (NCCL, which generation never calls, so both may share
            one card), DPM-10 over the main phase's grid: disjoint patch sets
            whose union has the main phase's names, finite, CHW
   dist_cli (after fp32 training) the same for the training CLI at the
-           canonical config, 25 steps
-  profile  the training CLI with --profile under --launcher pytorch at
-           world size 1 (NCCL): the trace of steps 5-9 names the port's
-           kernels; device time by class and the NCCL all-reduce's share
+           canonical config, 25 steps; its largest world's run (world size 1
+           on one card) also takes --profile
+  profile_cli  that run's trace of steps 5-9 names the port's kernels;
+           device time by class and the NCCL all-reduce's share
+  reference_steps  the canonical training step in one process (bf16, bf16
+           with --remat, fp32): what dist_step, remat and train_sharded
+           hold their steps against
   dist_step  the canonical training step on 2 ranks under DDP (NCCL with
            2 cards, else gloo over CUDA tensors on one card), 3 steps: both
            ranks log the same loss and grad norm and end bit-equal; the
@@ -210,8 +218,10 @@ The closed-loop learning gate (scripts/port_learning_gate.py):
            draws, counted from zero: attn_tail, groupnorm_silu, dual_head
            and ddim_head each launched (launches_sweep in the kernels
            line), the two DDIM KLDs within SWEEP_DDIM_RTOL
-The last lines are the kernels JSON line, the card's name and power limit,
-and {"ok": true, "device": {...}}. On the way out, whether a phase passed
+Each section of main logs `  <name> phase <s> s` when it ends, passed or
+failed (`timed`). The last lines are {"phase_seconds": {name: s}, "total_s":
+s}, the kernels JSON line, the card's name and power limit, and {"ok":
+true, "device": {...}}. On the way out, whether a phase passed
 or failed, the script stops and reaps every process it started that still
 runs (`stop_children`; it is the subreaper of its descendants), among them
 the resource tracker of the generation CLI's spawned DataLoader workers,
@@ -253,12 +263,18 @@ GN_PER_EVAL = [  # (stage, groups, film, count)
 GN_PER_STEP = {0: 16, 1: 8, 2: 8, 3: 12}
 DPM_STEPS = 10
 DDIM_STEPS = 100
+# the fp32 generation check's depth: one batch of DPM-2 (the plain route in
+# fp32 takes seconds an evaluation)
+FP32_GEN_STEPS = 2
 N_BATCHES = 2
 # the miniature training tree: 2 pairs at SID Sony's frame size, one ISO800
 # x250 bucket rebalanced to int(100 / 2) * 2 = 100 samples
 SID_BAYER = (2848, 4256)
 TRAIN_STEPS = 100 // BATCH
-PROFILE_STEPS = 8
+# training steps in each timed window and each torch.profiler profile of a
+# step (train profile, posemb): the profiler's processing, seconds a step on
+# the host, grows with the steps it records
+PROFILE_STEPS = 3
 FRAME = 640  # packed frame side of the smoke tree
 GRID_NAMES = {f"{x}_{y}" for x in (0, 128) for y in (0, 128)}
 # stated tolerances, kernel vs plain version on the same card inputs:
@@ -299,6 +315,24 @@ ATTN_SHAPE = (4, 384, 64, 64)  # B, C, H, W: 4096 tokens, 4 heads of 32
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# seconds of each section of main, by the name of its [tag] (timed); a name
+# met twice adds up
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Log `  <name> phase <s> s` when the block ends, whether it passed or
+    raised, and add its seconds to PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        s = time.perf_counter() - t0
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + s
+        log(f"  {name} phase {s:.1f} s")
 
 
 def card_line() -> str:
@@ -2723,16 +2757,17 @@ def phase_fullframe(seed: int, ckpt: str, sid: str):
     if any(v for k, v in counts.items() if k not in want):
         raise AssertionError(f"fullframe: launches {counts}")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:  # a sample, per evaluation
-        generate_full_frame(gd, clean, idx, sampling_timesteps=FULLFRAME_STEPS, init_noise=x)
+    with torch.profiler.profile(activities=acts) as prof:  # a short sample, per evaluation
+        generate_full_frame(gd, clean, idx, sampling_timesteps=FULLFRAME_CHECK_STEPS,
+                            init_noise=x)
         torch.cuda.synchronize()
-    by_name = _device_ms_by_name(prof, FULLFRAME_STEPS)
+    by_name = _device_ms_by_name(prof, FULLFRAME_CHECK_STEPS)
     busy = sum(by_name.values())
     log(f"  DPM-{FULLFRAME_STEPS} over 1x{FULLFRAME[0]}x{FULLFRAME[1]}x4: {secs:.4f} s a sample "
         f"(synchronised), {secs * 1e3 / FULLFRAME_STEPS:.4f} ms an evaluation; std of the "
         f"noise {float(out.std()):.5f}; peak device memory {peak / 2 ** 30:.3f} GiB; launches "
         f"{ {k: v for k, v in counts.items() if v} }; device busy {busy:.4f} ms an evaluation "
-        f"(a profiled DPM-{FULLFRAME_STEPS} sample over {FULLFRAME_STEPS})")
+        f"(a profiled DPM-{FULLFRAME_CHECK_STEPS} sample over {FULLFRAME_CHECK_STEPS})")
 
     # DPM-2 through the kernels (bf16) against the plain route in fp32, with
     # the plain route in bf16 beside them: the kernels' sample must be as
@@ -2779,12 +2814,18 @@ PORT_DIR = os.path.dirname(os.path.abspath(__file__))
 RANK_TIMEOUT = 300  # seconds a spawned rank may take
 
 
-def free_port() -> int:
+def free_ports(n: int) -> list:
+    """n distinct free local ports (all bound at once, then released)."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 def become_subreaper() -> None:
@@ -2873,53 +2914,111 @@ def stop_children(grace: float = 10.0) -> list:
     return stopped
 
 
+# what a spawned rank imports, imported once by the server its processes
+# fork from (multiprocessing's forkserver, which never touches the card), so
+# that a rank starts without paying those imports again
+RANK_PRELOAD = ["torch", "torch.distributed", "noisediff_tpu_torch.cli.test_diffusion",
+                "noisediff_tpu_torch.cli.train_diffusion",
+                "noisediff_tpu_torch.cli.train_denoising",
+                "noisediff_tpu_torch.diffusion.fullframe", "noisediff_tpu_torch.parallel.mesh",
+                "noisediff_tpu_torch.train.state", "chip_smoke"]
+
+
+def rank_context():
+    """The multiprocessing context the ranks start from: forkserver with
+    RANK_PRELOAD. Its server starts on the first call (main makes it first,
+    so that the server imports while the kernels build)."""
+    import multiprocessing
+    from multiprocessing import forkserver
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(RANK_PRELOAD)
+    forkserver.ensure_running()
+    return ctx
+
+
+def _rank_process(env: dict, log_path: str) -> None:
+    """A rank in the process the forkserver made for it: env as its whole
+    environment, its output appended to log_path, then rank_main's exit
+    code."""
+    fd = os.open(log_path, os.O_WRONLY | os.O_APPEND)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    os.environ.clear()
+    os.environ.update(env)
+    os.chdir(PORT_DIR)
+    sys.exit(rank_main())
+
+
 def spawn_ranks(job: dict, world: int, workdir: str, launcher_env: bool = True):
     """Run `job` (rank_main) as `world` processes with torchrun's environment
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT on a free local
     port; launcher_env False gives one process no launcher environment),
     each with its output in workdir/<job>.rank<r>.log; returns each rank's
-    result (JSON). Every process still running is killed on the way out."""
-    port = free_port()
-    procs, logs = [], []
-    tag = job["job"] + "-" + str(job.get("name", ""))
+    result (JSON). The processes fork from `rank_context`'s server. Every
+    process still running is killed on the way out."""
+    return spawn_jobs([(job, world, launcher_env)], workdir)[0]
+
+
+def spawn_jobs(specs, workdir: str):
+    """Run several independent jobs at once, each as spawn_ranks runs one:
+    specs is a list of (job, world, launcher_env), each job on a port of its
+    own. Their processes start together, so their start-up (the CUDA
+    context, first calls) overlaps; their timings are read under each
+    other's load. Returns each job's rank results, in the order of specs; a
+    rank that fails fails the call, and every process still running is
+    killed on the way out."""
+    ctx = rank_context()
+    runs = []  # (tag, world, job, procs, logs)
     try:
-        for rank in range(world):
-            env = dict(os.environ, CHIP_SMOKE_JOB=json.dumps(job),
-                       PYTHONPATH=os.pathsep.join(
-                           [PORT_DIR] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-            for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
-                env.pop(k, None)
-            if launcher_env:
-                env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-            logs.append(os.path.join(workdir, f"{tag}.rank{rank}.log"))
-            with open(logs[-1], "w") as out:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-c",
-                     "import sys, chip_smoke; sys.exit(chip_smoke.rank_main())"],
-                    cwd=PORT_DIR, env=env, stdout=out, stderr=subprocess.STDOUT))
+        for (job, world, launcher_env), port in zip(specs, free_ports(len(specs))):
+            tag = job["job"] + "-" + str(job.get("name", ""))
+            procs, logs = [], []
+            runs.append((tag, world, job, procs, logs))
+            for rank in range(world):
+                env = dict(os.environ, CHIP_SMOKE_JOB=json.dumps(job),
+                           PYTHONPATH=os.pathsep.join(
+                               [PORT_DIR] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+                for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+                    env.pop(k, None)
+                if launcher_env:
+                    env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                logs.append(os.path.join(workdir, f"{tag}.rank{rank}.log"))
+                open(logs[-1], "w").close()
+                procs.append(ctx.Process(target=_rank_process, args=(env, logs[-1]),
+                                         name=f"{tag}.rank{rank}"))
+                procs[-1].start()
         t0 = time.time()
-        for rank, p in enumerate(procs):
-            code = p.wait(timeout=max(1.0, RANK_TIMEOUT - (time.time() - t0)))
-            if code != 0:
-                with open(logs[rank]) as f:
-                    tail = f.read()[-6000:]
-                raise AssertionError(f"{tag}: rank {rank} of {world} exited {code}:\n{tail}")
+        for tag, world, _, procs, logs in runs:
+            for rank, p in enumerate(procs):
+                p.join(timeout=max(1.0, RANK_TIMEOUT - (time.time() - t0)))
+                if p.exitcode != 0:
+                    with open(logs[rank]) as f:
+                        tail = f.read()[-6000:]
+                    code = "still running" if p.exitcode is None else f"exited {p.exitcode}"
+                    raise AssertionError(f"{tag}: rank {rank} of {world} {code}:\n{tail}")
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        for *_, procs, _ in runs:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
     warned = []
-    for path in logs:
-        with open(path) as f:
-            warned += [ln.strip() for ln in f if "Warning" in ln or "warning" in ln]
+    for *_, logs in runs:
+        for path in logs:
+            with open(path) as f:
+                warned += [ln.strip() for ln in f if "Warning" in ln or "warning" in ln]
     if warned:
         log(f"  warnings in the ranks' output: {sorted(set(warned))[:6]}")
     results = []
-    for rank in range(world):
-        with open(job["result"] % rank) as f:
-            results.append(json.load(f))
+    for _, world, job, _, _ in runs:
+        ranks = []
+        for rank in range(world):
+            with open(job["result"] % rank) as f:
+                ranks.append(json.load(f))
+        results.append(ranks)
     return results
 
 
@@ -3020,7 +3119,7 @@ def fullframe_sharded_rank(job):
     weights (bf16, kernels) over the evaluation tree's first clean frame,
     split by rows over the process group (job["backend"]) through
     generate_full_frame: a DPM-1 warm-up; DPM-10 timed between barriers
-    (synchronised) with its launches and this rank's peak memory; a DPM-10
+    (synchronised) with its launches and this rank's peak memory; a DPM-2
     sample under torch.profiler (the halo exchanges' and the all-reduces'
     spans, the device time by class, an evaluation's share); the
     collectives' host time alone; DPM-2 and DDIM-2 from the x_T of phase_fullframe,
@@ -3077,10 +3176,10 @@ def fullframe_sharded_rank(job):
                frame_ok=(frame is None if shard.rank else
                          frame.shape == (*FULLFRAME, 4) and bool(np.isfinite(frame).all())))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:  # a sample, per evaluation
-        run(gd, clean, FULLFRAME_STEPS, x)
+    with torch.profiler.profile(activities=acts) as prof:  # a short sample, per evaluation
+        run(gd, clean, FULLFRAME_CHECK_STEPS, x)
         torch.cuda.synchronize(dev)
-    out["spans"] = _span_stats(prof, FULLFRAME_STEPS)
+    out["spans"] = _span_stats(prof, FULLFRAME_CHECK_STEPS)
     out["collective_host_us"] = _collective_host_us(
         mesh.SpatialShard(shard.rank, shard.world, FULLFRAME[0]), dev)
     reset_launch_counts()
@@ -3276,7 +3375,7 @@ def phase_fullframe_sharded(seed: int, ckpt: str, sid: str, workdir: str, one_ca
             f"{[r['bounds'] for r in ranks]}; peak memory a rank "
             f"{[round(r['peak_bytes'] / 2 ** 30, 3) for r in ranks]} GiB (one card "
             f"{one_card['peak_bytes'] / 2 ** 30:.3f})")
-        log(f"  an evaluation, rank 0's profile of a DPM-{FULLFRAME_STEPS} sample: "
+        log(f"  an evaluation, rank 0's profile of a DPM-{FULLFRAME_CHECK_STEPS} sample: "
             + ", ".join(f"{k} {spans[k]['count']:g} calls {spans[k]['host_ms']:.4f} ms"
                         for k in (mesh.HALO_SPAN, mesh.GN_SPAN) if k in spans)
             + f"; on the card: its own work {spans['compute_device_ms']:.4f} ms (one card "
@@ -3308,8 +3407,8 @@ def reference_steps(seed: int):
     (stored activations and --remat) and fp32 on the card. Returns, for
     each, the loss, grad norm, gradients and updated parameters (on the
     host), the first step's launches and peak device memory and, for bf16,
-    a step's time (CUDA events, median of 5) and device busy time
-    (torch.profiler over 3 steps)."""
+    a step's time (CUDA events, median of 3) and device busy time
+    (torch.profiler over 1 step)."""
     import torch
 
     from noisediff_tpu_torch.diffusion.gaussian import GaussianDiffusion
@@ -3339,14 +3438,13 @@ def reference_steps(seed: int):
                         if p.grad is not None},
                  params={n: p.detach().cpu() for n, p in model.named_parameters()})
         if dtype is not None:
-            r["step_ms"] = time_ms(lambda: step(batch, g), reps=5, warmup=1)
+            r["step_ms"] = time_ms(lambda: step(batch, g), reps=3, warmup=1)
             r["peak_bytes_steps"] = torch.cuda.max_memory_allocated()
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(3):
-                    step(batch, g)
+                step(batch, g)
                 torch.cuda.synchronize()
-            r["busy_ms"] = sum(_device_ms_by_name(prof, 3).values())
+            r["busy_ms"] = sum(_device_ms_by_name(prof, 1).values())
         out[name] = r
         del model, gd, step, batch
     torch.cuda.empty_cache()
@@ -3692,8 +3790,8 @@ def phase_remat(ref):
     log(f"  peak device memory of the first step (Adam state included): "
         f"{b['peak_bytes'] / gib:.3f} GiB with --remat, {a['peak_bytes'] / gib:.3f} without; "
         f"a step's device busy time {b['busy_ms']:.4f} ms with, {a['busy_ms']:.4f} without "
-        f"(torch.profiler, 3 steps); the step {b['step_ms']:.4f} / {a['step_ms']:.4f} ms "
-        "(CUDA events around it, host waits included, median of 5)")
+        f"(torch.profiler, 1 step); the step {b['step_ms']:.4f} / {a['step_ms']:.4f} ms "
+        "(CUDA events around it, host waits included, median of 3)")
     extra = {k: b["launches"][k] - a["launches"][k] for k in a["launches"]
              if b["launches"][k] != a["launches"][k]}
     log(f"  launches a step with --remat {b['launches']}; the recompute's extra {extra}")
@@ -3749,31 +3847,37 @@ def _load_lsid(snap: str) -> None:
                                       weights_only=True))
 
 
-def phase_dist_cli(workdir: str, what: str, argv, snapshots, load):
-    """One of the training CLIs as spawned processes: --launcher none (one
-    process, no launcher environment) and --launcher pytorch at world size
-    1 over NCCL, and world size 2 where the machine has 2 cards, each rank
-    with its own save folder. The world-1 losses are bit-equal to the
-    --launcher none run's; only rank 0 creates its run directory, logs and
-    snapshots (`snapshots`: the file names), which `load` loads strictly;
-    steps/s and global samples/s beside the one-process run's."""
+def phase_dist_cli(workdir: str, what: str, argv, snapshots, load, profile: bool = False):
+    """One of the training CLIs as spawned processes, all started at once:
+    --launcher none (one process, no launcher environment) and --launcher
+    pytorch at world size 1 over NCCL, and world size 2 where the machine
+    has 2 cards, each rank with its own save folder. The world-1 losses are
+    bit-equal to the --launcher none run's; only rank 0 creates its run
+    directory, logs and snapshots (`snapshots`: the file names), which
+    `load` loads strictly; steps/s and global samples/s beside the
+    one-process run's. `profile`: the largest world's run also takes
+    --profile (its trace is phase_profile_cli's; `profile_folder`)."""
     import torch
 
     cli = "train_diffusion" if what == "train" else "train_denoising"
     name = argv[len(argv) - 1 - argv[::-1].index("--name") + 1]  # the run's --name
-
-    def run(tag, world, launcher, env):
-        out = os.path.join(workdir, f"dist_{what}_{tag}", "rank{rank}", "weights")
-        job = dict(job="cli", name=f"{what}_{tag}", cli=cli,
-                   argv=argv + ["--launcher", launcher, "--save_folder", out],
-                   result=os.path.join(workdir, f"dist_{what}_{tag}.rank%d.json"))
-        return spawn_ranks(job, world, workdir, launcher_env=env), out
-
-    (one,), _ = run("none", 1, "none", False)
     worlds = [1] + ([2] if torch.cuda.device_count() >= 2 else [])
+    runs = [("none", 1, "none", [])] + [
+        (f"world{w}", w, "pytorch", ["--profile"] if profile and w == worlds[-1] else [])
+        for w in worlds]
+    folders, specs = {}, []
+    for tag, world, launcher, extra in runs:
+        folders[tag] = os.path.join(workdir, f"dist_{what}_{tag}", "rank{rank}", "weights")
+        specs.append((dict(job="cli", name=f"{what}_{tag}", cli=cli,
+                           argv=argv + ["--launcher", launcher, "--save_folder", folders[tag]]
+                           + extra,
+                           result=os.path.join(workdir, f"dist_{what}_{tag}.rank%d.json")),
+                      world, launcher != "none"))
+    results = dict(zip(folders, spawn_jobs(specs, workdir)))
+    one = results["none"][0]
     out = {"none": one}
     for world in worlds:
-        res, folder = run(f"world{world}", world, "pytorch", True)
+        res, folder = results[f"world{world}"], folders[f"world{world}"]
         if world == 1 and res[0]["losses"] != one["losses"]:
             raise AssertionError(f"dist_cli {what}: world-1 NCCL losses {res[0]['losses']} are "
                                  f"not bit-equal to --launcher none's {one['losses']}")
@@ -3804,7 +3908,10 @@ def phase_dist_cli(workdir: str, what: str, argv, snapshots, load):
             f"{res[0]['peak_bytes'] / 2 ** 30:.3f} GiB a rank; losses "
             f"{res[0]['losses'][0]:.6f} -> {res[0]['losses'][-1]:.6f}")
     log(f"  world-1 NCCL losses bit-equal to --launcher none's ({len(one['losses'])} steps); "
-        "only rank 0 wrote its run directory, log and snapshots, which load strictly")
+        "only rank 0 wrote its run directory, log and snapshots, which load strictly "
+        f"(the {len(specs)} runs at once, so each rate was read under the others' load)")
+    if profile:
+        out.update(profile_folder=folders[f"world{worlds[-1]}"], profile_world=worlds[-1])
     return out
 
 
@@ -3841,22 +3948,17 @@ def phase_dist_gen(seed: int, workdir: str, ckpt: str, main_files):
     return dict(ranks=res)
 
 
-def phase_profile_cli(seed: int, workdir: str):
+def phase_profile_cli(workdir: str, dist_train: dict):
     """The training CLI with --profile under --launcher pytorch over NCCL,
-    at world size 2 where the machine has 2 cards, else 1: rank 0's trace
-    of steps 5-9 exists under <save_folder>/profile and names the port's
-    kernels with nonzero launches; the device time by kernel class and of
-    the copies, and the NCCL all-reduce's share of the steps' device time
-    and of their span (at world size 1 NCCL's in-place all-reduce of one
-    rank launches nothing: DDP's cost there is its bucket copies)."""
-    import torch
-
-    world = 2 if torch.cuda.device_count() >= 2 else 1
-    out = os.path.join(workdir, "dist_profile", "rank{rank}", "weights")
-    argv = train_argv(seed, workdir, out) + ["--launcher", "pytorch", "--profile"]
-    job = dict(job="cli", name="profile", cli="train_diffusion", argv=argv,
-               result=os.path.join(workdir, "dist_profile.rank%d.json"))
-    spawn_ranks(job, world, workdir)
+    at world size 2 where the machine has 2 cards, else 1: the largest
+    world's run of phase_dist_cli (`dist_train`; the same argv with
+    --profile). Rank 0's trace of steps 5-9 exists under
+    <save_folder>/profile and names the port's kernels with nonzero
+    launches; the device time by kernel class and of the copies, and the
+    NCCL all-reduce's share of the steps' device time and of their span (at
+    world size 1 NCCL's in-place all-reduce of one rank launches nothing:
+    DDP's cost there is its bucket copies)."""
+    world, out = dist_train["profile_world"], dist_train["profile_folder"]
     traces = glob.glob(os.path.join(out.replace("{rank}", "0"), "train_diffusion", "profile",
                                     "*.json"))
     if len(traces) != 1:
@@ -4795,150 +4897,199 @@ def main(argv=None) -> int:
               "root of a checkout", file=sys.stderr)
         return 2
 
-    t_start = time.time()
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    set_precision_flags()
-    log(f"[env] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.device_count()} device(s); allow_tf32 matmul="
-        f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
+    t_start = time.perf_counter()
+    with timed("env"):
+        rank_context()  # the spawned ranks' server imports torch and the port meanwhile
+        card = card_line()
+        kind = torch.cuda.get_device_name(0)
+        set_precision_flags()
+        log(f"[env] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"{torch.cuda.device_count()} device(s); allow_tf32 matmul="
+            f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
 
-    t0 = time.time()
-    build_logs = _build.build_all()
-    log(f"[build] {len(build_logs)} kernel libraries built in {time.time() - t0:.1f} s")
-    for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "Compiling entry function" in line:  # the kernel the next lines are about
-                log(f"  {name}: {line.split(chr(39))[1][:110]}")
-            elif "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  {name}: {line.strip()}")
-    for name in ("groupnorm_silu", "dual_head"):  # designed to run without spills
-        spills = [ln.strip() for ln in build_logs.get(name, "").splitlines()
-                  if "spill" in ln and not ln.strip().startswith(
-                      "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
-        if spills:
-            raise AssertionError(f"{name}: ptxas reports spills: {spills}")
-    sass = flash_sass_counts(_build._lib_path("flash_attention"), _build._nvcc())
-    log("  flash_attention D=32 main loop, SASS instructions per score element: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in sass.items()))
+    with timed("build"):
+        build_logs = _build.build_all()
+        log(f"[build] {len(build_logs)} kernel libraries built")
+        for name, text in build_logs.items():
+            for line in text.splitlines():
+                if "Compiling entry function" in line:  # the kernel the next lines are about
+                    log(f"  {name}: {line.split(chr(39))[1][:110]}")
+                elif "registers" in line or "spill" in line or "error" in line.lower():
+                    log(f"  {name}: {line.strip()}")
+        for name in ("groupnorm_silu", "dual_head"):  # designed to run without spills
+            spills = [ln.strip() for ln in build_logs.get(name, "").splitlines()
+                      if "spill" in ln and not ln.strip().startswith(
+                          "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+            if spills:
+                raise AssertionError(f"{name}: ptxas reports spills: {spills}")
+        sass = flash_sass_counts(_build._lib_path("flash_attention"), _build._nvcc())
+        log("  flash_attention D=32 main loop, SASS instructions per score element: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sass.items()))
 
-    log("[kernels] kernel vs plain version on the card")
-    results = phase_kernels(args.seed)
-    routed_per_step = sum(r["calls"] for r in results["conv_wgrad"])
-    log("[model] full-width forward, card vs CPU")
-    phase_model(args.seed)
-    log("[profile] where one model evaluation spends its time")
-    phase_profile(args.seed)
-    log("[int8] the int8 route's kernels (NOISEDIFF_INT8=1) against their plain versions")
-    int8 = phase_int8_kernels(args.seed)
-    results.update(int8_conv=int8["int8_conv"], absmax=int8["absmax"])
+    with timed("kernels"):
+        log("[kernels] kernel vs plain version on the card")
+        results = phase_kernels(args.seed)
+        routed_per_step = sum(r["calls"] for r in results["conv_wgrad"])
+    with timed("model"):
+        log("[model] full-width forward, card vs CPU")
+        phase_model(args.seed)
+    with timed("profile"):
+        log("[profile] where one model evaluation spends its time")
+        phase_profile(args.seed)
+    with timed("int8 kernels"):
+        log("[int8 kernels] the int8 route's kernels (NOISEDIFF_INT8=1) against their plain "
+            "versions")
+        int8 = phase_int8_kernels(args.seed)
+        results.update(int8_conv=int8["int8_conv"], absmax=int8["absmax"])
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        ckpt = gen_setup(workdir, args.seed)
-        log("[main] bulk generation through the CLI")
-        gen = phase_main(args.seed, workdir, ckpt)
-        log("[ddim] DDIM-100 generation through the CLI, the fused DDIM tail")
-        ddim = phase_ddim(args.seed, workdir, ckpt)
-        log("[fp32] DPM-10 generation through the CLI with --no_mixed_precision")
-        # one batch: the fp32 plain route takes ~23 s a batch (final run, PR 14)
-        fp32_tree = os.path.join(workdir, "fp32_tree")
-        make_sid_tree(fp32_tree, args.seed, batches=1)
-        run_generation(gen_argv(fp32_tree, ckpt, args.seed, "fp32",
-                                ["--sampler", "dpm", "--no_mixed_precision"]),
-                       {k: 0 for k in KERNEL_WRAPPERS}, "fp32 generation", batches=1)
-        log(f"  1 batch of {BATCH} patches, fp32, no kernel launched")
-        log("[int8] the main phase's DPM-10 generation through the CLI with NOISEDIFF_INT8=1")
-        int8_gen = phase_int8_generation(args.seed, workdir, ckpt, gen, int8["per_eval"])
-        log("[denoise] LSID trained through the denoising CLI on the main phase's patches")
-        denoise = phase_denoise(args.seed, workdir, os.path.join(
-            workdir, "out", "ISO800_Ratio250", "npy", "generated"))
-        log("[dist_cli denoise] the denoising CLI under --launcher pytorch, NCCL")
-        dist_denoise = phase_dist_cli(workdir, "denoise", denoise["argv"], denoise["snapshots"],
-                                      _load_lsid)
-        log("[dist_gen] generation through the CLI on 2 ranks, --launcher pytorch")
-        dist_gen = phase_dist_gen(args.seed, workdir, ckpt, glob.glob(os.path.join(
-            workdir, "out", "ISO800_Ratio250", "npy", "generated", "*.npy")))
-        log("[denoise] SNA's Poisson draw on the card")
-        check_poisson_on_card()
-        log("[denoise profile] where a denoising step spends its time")
-        phase_denoise_profile(args.seed, denoise["period_ms"])
-        log("[evaluate] the denoiser's PSNR / SSIM through the test_denoising CLI, full frames")
-        evaluation = phase_evaluate(args.seed, workdir, os.path.join(
-            workdir, "denoise", "weights", "train_denoising", "snapshot", "net_final.pth"))
-        log("[int8] the first SID frame through the evaluation CLI with NOISEDIFF_INT8=1")
-        int8_eval = phase_int8_evaluate(evaluation)
-        log("[kld] real against generated noise through the eval_kld CLI")
-        phase_kld(evaluation["sid"], os.path.join(
-            workdir, "out", "ISO800_Ratio250", "npy", "generated"))
-        log("[fullframe] full-frame generation, DPM-10 over the whole packed SID frame")
-        fullframe = phase_fullframe(args.seed, ckpt, evaluation["sid"])
-        log("[fullframe_sharded] the full frame split by rows over 2 ranks (and 4 on 4 cards)")
-        t0 = time.time()
-        sharded = phase_fullframe_sharded(args.seed, ckpt, evaluation["sid"], workdir, fullframe)
-        log(f"  fullframe_sharded phase {time.time() - t0:.1f} s")
+        with timed("gen_setup"):
+            ckpt = gen_setup(workdir, args.seed)
+        with timed("main"):
+            log("[main] bulk generation through the CLI")
+            gen = phase_main(args.seed, workdir, ckpt)
+        with timed("ddim"):
+            log("[ddim] DDIM-100 generation through the CLI, the fused DDIM tail")
+            ddim = phase_ddim(args.seed, workdir, ckpt)
+        with timed("fp32 generation"):
+            log(f"[fp32 generation] DPM-{FP32_GEN_STEPS} generation through the CLI with "
+                "--no_mixed_precision")
+            fp32_tree = os.path.join(workdir, "fp32_tree")
+            make_sid_tree(fp32_tree, args.seed, batches=1)
+            run_generation(gen_argv(fp32_tree, ckpt, args.seed, "fp32",
+                                    ["--sampler", "dpm", "--no_mixed_precision",
+                                     "--sampling_timesteps", str(FP32_GEN_STEPS)]),
+                           {k: 0 for k in KERNEL_WRAPPERS}, "fp32 generation", batches=1)
+            log(f"  1 batch of {BATCH} patches, fp32, no kernel launched")
+        with timed("int8 generation"):
+            log("[int8 generation] the main phase's DPM-10 generation through the CLI with "
+                "NOISEDIFF_INT8=1")
+            int8_gen = phase_int8_generation(args.seed, workdir, ckpt, gen, int8["per_eval"])
+        with timed("denoise"):
+            log("[denoise] LSID trained through the denoising CLI on the main phase's patches")
+            denoise = phase_denoise(args.seed, workdir, os.path.join(
+                workdir, "out", "ISO800_Ratio250", "npy", "generated"))
+        with timed("dist_cli denoise"):
+            log("[dist_cli denoise] the denoising CLI under --launcher pytorch, NCCL")
+            dist_denoise = phase_dist_cli(workdir, "denoise", denoise["argv"],
+                                          denoise["snapshots"], _load_lsid)
+        with timed("dist_gen"):
+            log("[dist_gen] generation through the CLI on 2 ranks, --launcher pytorch")
+            dist_gen = phase_dist_gen(args.seed, workdir, ckpt, glob.glob(os.path.join(
+                workdir, "out", "ISO800_Ratio250", "npy", "generated", "*.npy")))
+        with timed("poisson"):
+            log("[poisson] SNA's Poisson draw on the card")
+            check_poisson_on_card()
+        with timed("denoise profile"):
+            log("[denoise profile] where a denoising step spends its time")
+            phase_denoise_profile(args.seed, denoise["period_ms"])
+        with timed("evaluate"):
+            log("[evaluate] the denoiser's PSNR / SSIM through the test_denoising CLI, full "
+                "frames")
+            evaluation = phase_evaluate(args.seed, workdir, os.path.join(
+                workdir, "denoise", "weights", "train_denoising", "snapshot", "net_final.pth"))
+        with timed("int8 evaluate"):
+            log("[int8 evaluate] the first SID frame through the evaluation CLI with "
+                "NOISEDIFF_INT8=1")
+            int8_eval = phase_int8_evaluate(evaluation)
+        with timed("kld"):
+            log("[kld] real against generated noise through the eval_kld CLI")
+            phase_kld(evaluation["sid"], os.path.join(
+                workdir, "out", "ISO800_Ratio250", "npy", "generated"))
+        with timed("fullframe"):
+            log("[fullframe] full-frame generation, DPM-10 over the whole packed SID frame")
+            fullframe = phase_fullframe(args.seed, ckpt, evaluation["sid"])
+        with timed("fullframe_sharded"):
+            log("[fullframe_sharded] the full frame split by rows over 2 ranks (and 4 on 4 "
+                "cards)")
+            sharded = phase_fullframe_sharded(args.seed, ckpt, evaluation["sid"], workdir,
+                                              fullframe)
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    log("[denoise_check] one LSID training step, card vs CPU")
-    phase_denoise_check(args.seed)
-    log("[train_check] full-width training step, card vs CPU")
-    phase_train_check(args.seed)
+        with timed("cleanup"):
+            shutil.rmtree(workdir, ignore_errors=True)
+    with timed("denoise_check"):
+        log("[denoise_check] one LSID training step, card vs CPU")
+        phase_denoise_check(args.seed)
+    with timed("train_check"):
+        log("[train_check] full-width training step, card vs CPU")
+        phase_train_check(args.seed)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        log("[train] training through the CLI at the canonical config")
-        train = phase_train(args.seed, workdir)
-        log("[train_wgrad] training through the CLI on the conv_wgrad route")
-        wgrad = phase_train_wgrad(args.seed, workdir, routed_per_step, train["steps_per_s"])
-        log("[fp32] training through the CLI with --no_mixed_precision")
-        phase_fp32_train(args.seed, workdir)
-        log("[dist_cli] the training CLI under --launcher pytorch, NCCL")
-        dist_train = phase_dist_cli(workdir, "train", train_argv(args.seed, workdir, ""),
-                                    TRAIN_SNAPSHOTS, _load_noisediffnet)
-        log("[profile] the training CLI with --profile, --launcher pytorch at world size 1")
-        profile_cli = phase_profile_cli(args.seed, workdir)
+        with timed("train"):
+            log("[train] training through the CLI at the canonical config")
+            train = phase_train(args.seed, workdir)
+        with timed("train_wgrad"):
+            log("[train_wgrad] training through the CLI on the conv_wgrad route")
+            wgrad = phase_train_wgrad(args.seed, workdir, routed_per_step, train["steps_per_s"])
+        with timed("fp32 train"):
+            log("[fp32 train] training through the CLI with --no_mixed_precision")
+            phase_fp32_train(args.seed, workdir)
+        with timed("dist_cli train"):
+            log("[dist_cli train] the training CLI under --launcher pytorch, NCCL; the largest "
+                "world's run with --profile")
+            dist_train = phase_dist_cli(workdir, "train", train_argv(args.seed, workdir, ""),
+                                        TRAIN_SNAPSHOTS, _load_noisediffnet, profile=True)
+        with timed("profile_cli"):
+            log("[profile_cli] the trace of dist_cli train's --profile run (--launcher "
+                "pytorch, its largest world)")
+            profile_cli = phase_profile_cli(workdir, dist_train)
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    log("[train profile] where a training step spends its time")
-    phase_train_profile(args.seed, train["period_ms"])
+        with timed("cleanup"):
+            shutil.rmtree(workdir, ignore_errors=True)
+    with timed("train profile"):
+        log("[train profile] where a training step spends its time")
+        phase_train_profile(args.seed, train["period_ms"])
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        log("[dist_step] the canonical training step on 2 ranks, DDP")
-        ref = reference_steps(args.seed)
-        dist_step = phase_dist_step(args.seed, workdir, ref)
-        log("[remat] the canonical training step with and without --remat")
-        remat = phase_remat(ref)
-        log("[train_sharded] the canonical training step on the data x spatial x model grid")
-        t0 = time.time()
-        train_sharded = phase_train_sharded(args.seed, workdir, ref)
-        log(f"  train_sharded phase {time.time() - t0:.1f} s")
-        del ref
+        with timed("reference_steps"):
+            log("[reference_steps] the canonical training step in one process, fp32 and bf16")
+            ref = reference_steps(args.seed)
+        with timed("dist_step"):
+            log("[dist_step] the canonical training step on 2 ranks, DDP")
+            dist_step = phase_dist_step(args.seed, workdir, ref)
+        with timed("remat"):
+            log("[remat] the canonical training step with and without --remat")
+            remat = phase_remat(ref)
+        with timed("train_sharded"):
+            log("[train_sharded] the canonical training step on the data x spatial x model "
+                "grid")
+            train_sharded = phase_train_sharded(args.seed, workdir, ref)
+            del ref
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+        with timed("cleanup"):
+            shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        log("[gate] the closed-loop learning gate through the CLIs, smoke scale, bf16")
-        gate = phase_gate(args.seed, workdir)
-        log(f"  gate phase {gate['seconds']:.1f} s of gate run")
-        log(f"[sweep] the sampler KLD sweep on the gate's EMA weights: DPM-{SWEEP_DPM_STEPS} "
-            f"lambda, DDIM-{SWEEP_DDIM_STEPS} fused and unfused")
-        sweep = phase_sweep(workdir)
+        with timed("gate"):
+            log("[gate] the closed-loop learning gate through the CLIs, smoke scale, bf16")
+            gate = phase_gate(args.seed, workdir)
+            log(f"  {gate['seconds']:.1f} s of gate run")
+        with timed("sweep"):
+            log(f"[sweep] the sampler KLD sweep on the gate's EMA weights: "
+                f"DPM-{SWEEP_DPM_STEPS} lambda, DDIM-{SWEEP_DDIM_STEPS} fused and unfused")
+            sweep = phase_sweep(workdir)
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+        with timed("cleanup"):
+            shutil.rmtree(workdir, ignore_errors=True)
     for name, rows in gate["rows"].items():
         results[name] += rows
-    log("[attention] blocks.Attention forward and backward, card vs CPU")
-    attn = phase_attention(args.seed)
-    log("[dim96] a dim-96 NoiseDiffNet forward on its route, card vs CPU")
-    phase_dim96(args.seed)
+    with timed("attention"):
+        log("[attention] blocks.Attention forward and backward, card vs CPU")
+        attn = phase_attention(args.seed)
+    with timed("dim96"):
+        log("[dim96] a dim-96 NoiseDiffNet forward on its route, card vs CPU")
+        phase_dim96(args.seed)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        log("[posemb] the UNet_PosEmbV2 family: forwards, CameraCond trained and sampled "
-            "through the CLIs, the other two nets, LinearAttention, interpolate")
-        t0 = time.time()
-        posemb = phase_posemb(args.seed, workdir)
-        log(f"  posemb phase {time.time() - t0:.1f} s")
+        with timed("posemb"):
+            log("[posemb] the UNet_PosEmbV2 family: forwards, CameraCond trained and sampled "
+                "through the CLIs, the other two nets, LinearAttention, interpolate")
+            posemb = phase_posemb(args.seed, workdir)
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    log(f"[done] {time.time() - t_start:.1f} s")
+        with timed("cleanup"):
+            shutil.rmtree(workdir, ignore_errors=True)
+    run_s = time.perf_counter() - t_start
+    log(f"[done] {run_s:.1f} s")
 
     gc, dc, tc, steps = gen["counts"], ddim["counts"], train["counts"], train["steps"]
     fc, pc = fullframe["counts"], posemb["counts"]
@@ -4994,6 +5145,7 @@ def main(argv=None) -> int:
     # the small kernel on both int8 paths (each shape there takes the tiled one)
     launches["int8_conv"][1]["launches_small"] = (int8_gen["counts"]["int8_conv_small"]
                                                   + int8_eval["counts"]["int8_conv_small"])
+    print(json.dumps({"phase_seconds": PHASE_SECONDS, "total_s": run_s}))
     print(json.dumps(kernels_line(results, launches)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
